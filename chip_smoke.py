@@ -5,24 +5,29 @@
 
 Phases; any error in any of them fails the run (non-zero exit, no result line):
   1. device  - CUDA must be available; prints nvidia-smi's name and power limit.
-  2. build   - nvcc builds every kernel of the serving path from csrc/.
+  2. build   - nvcc builds every kernel of the serving paths from csrc/, one
+               nvcc per source, all started together.
   3. kernels - each kernel against its plain PyTorch version on the card at the
-               serving path's shapes, f32 and bf16, in the layouts the path
-               hands it (contiguous, and q/k/v as slices of the fused qkv or
-               kv projection), with kernel, plain-version, library-call and
-               bound times.
-  4. slice   - full-width MicFormer (embed 48, depths 2-2-6-2, heads 3-6-12-24,
-               seeded random weights), f32 with TF32 off, on one 1x2x64³ input:
-               the card (kernel) against the CPU (plain version).
-  5. serve   - the same weights in bf16 through the port's serve loop: one
-               cold warm-up request, then three [2, 160³] requests, roi 128,
-               overlap 0.5, gaussian, sw_batch 4. Launch counts and peak memory
-               are reset just before the three and read just after.
+               serving paths' shapes, f32 and bf16, with kernel, plain-version,
+               library-call and bound times:
+               K1 window attention in the layouts the MicFormer path hands it
+               (contiguous, and q/k/v as slices of the fused qkv or kv
+               projection); K3 depthwise k³ conv at MedNeXt-S's five stage
+               shapes and two ragged ones, with the bias the path adds.
+  4. slice   - per model, full width with seeded random weights, f32 with TF32
+               off, on one 1x2x64³ input: the card (kernels) against the CPU
+               (plain versions). MicFormer: embed 48, depths 2-2-6-2, heads
+               3-6-12-24. MedNeXt-S: kernel 3, 32 channels, 2 blocks a stage.
+  5. serve   - per model, the same weights in bf16 through the port's serve
+               loop: one cold warm-up request, then three [2, 160³] requests,
+               roi 128, overlap 0.5, gaussian, sw_batch 4. Launch counts and
+               peak memory are reset just before the three and read just after.
   6. lines   - a {"kernels": [...]} line, then the {"ok": true, ...} line last.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import itertools
 import json
@@ -39,11 +44,19 @@ import torch.nn.functional as F
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense, no TF32
+# K3 multiplies and adds in f32 on the CUDA cores whatever its input type: a
+# depthwise conv has no reduction over channels for the tensor cores
+CUDA_CORE_F32_OPS_PER_S = 67e12
 KERNELS = {
     "window_attention": {
         "route": "cuda",
         "source": "micformer_tpu_torch/csrc/window_attention.cu",
         "replaces": "micformer_tpu/ops/pallas/window_attention_v2.py:95",
+    },
+    "dw_conv3": {
+        "route": "cuda",
+        "source": "micformer_tpu_torch/csrc/dw_conv3.cu",
+        "replaces": "micformer_tpu/ops/pallas/dw_stencil.py:80",
     },
 }
 # (N, T, h, d): stages 0-3 of a 128³ forward at sw_batch 4, then two ragged cases
@@ -53,6 +66,25 @@ ATTN_SHAPES = [(16384, 8, 3, 16), (2048, 8, 6, 16), (256, 8, 12, 16),
 # fused projections (self: qkv split in thirds; cross: q alone, kv in halves)
 ATTN_LAYOUTS = ("contiguous", "self", "cross")
 ATTN_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# ([B, C, D, H, W], k): MedNeXt-S's stride-1 depthwise convs at sw_batch 4,
+# roi 128 (stages 0-3, each run by 2 encoder and 2 decoder blocks, then the
+# bottleneck), then two ragged cases whose D, H, W are not tile multiples
+DW_SHAPES = [((4, 32, 128, 128, 128), 3), ((4, 64, 64, 64, 64), 3),
+             ((4, 128, 32, 32, 32), 3), ((4, 256, 16, 16, 16), 3),
+             ((4, 512, 8, 8, 8), 3), ((2, 24, 37, 45, 51), 3),
+             ((1, 16, 19, 23, 70), 5)]
+# f32: 27-125 f32 terms summed in another order; bf16: one rounding of
+# outputs up to about 10
+DW_TOL = {torch.float32: dict(rtol=0.0, atol=1e-4),
+          torch.bfloat16: dict(rtol=1e-2, atol=2e-2)}
+# the serving paths: kernel launches expected in one full-width forward at
+# 1x2x64³ and in one request (two forwards at sw_batch 4)
+PATHS = {
+    "micformer": {"slice": {"window_attention": 96, "dw_conv3": 0},
+                  "request": {"window_attention": 192, "dw_conv3": 0}},
+    "mednext": {"slice": {"window_attention": 0, "dw_conv3": 18},
+                "request": {"window_attention": 0, "dw_conv3": 36}},
+}
 
 
 def log(msg):
@@ -92,8 +124,9 @@ def phase_build():
     from micformer_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
-    for name in KERNELS:
-        r = _build.build(name)
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        results = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
+    for name, r in results.items():
         log(f"build: {name} {r['seconds']:.2f} s\n{r['log'].strip()}")
     log(f"build: all kernels in {time.perf_counter() - t0:.2f} s")
 
@@ -113,7 +146,7 @@ def attn_inputs(gen, layout, N, T, h, d, dt):
     return tuple(rand(C).view(N, T, h, d) for _ in range(3))
 
 
-def phase_kernels():
+def phase_attention_kernel():
     from micformer_tpu_torch.kernels.window_attention import (
         window_attention, window_attention_reference,
     )
@@ -151,7 +184,49 @@ def phase_kernels():
     return rows
 
 
-def phase_slice(model_cpu):
+def phase_dw_kernel():
+    from micformer_tpu_torch.kernels.dw_conv3 import dw_conv3, dw_conv3_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for ((B, C, D, H, W), k), dt in itertools.product(
+            DW_SHAPES, (torch.float32, torch.bfloat16)):
+        x = torch.randn((B, C, D, H, W), generator=gen, device="cuda").to(dt)
+        w = (torch.randn((C, 1, k, k, k), generator=gen, device="cuda")
+             / k ** 1.5).to(dt)
+        b = torch.randn((C,), generator=gen, device="cuda").to(dt)
+        got = dw_conv3(x, w, b)
+        torch.cuda.synchronize()
+        ref = dw_conv3_reference(x, w, b)
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = DW_TOL[dt]
+        if not bool(((got.float() - ref.float()).abs()
+                     <= tol["atol"] + tol["rtol"] * ref.float().abs()).all()):
+            raise AssertionError(f"dw_conv3 {[B, C, D, H, W]} k {k} {dt}: max err "
+                                 f"{err} beyond {tol}")
+        del got, ref
+        nbytes = (2 * x.numel() + w.numel() + C) * x.element_size()
+        ops = 2 * k ** 3 * x.numel()
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / CUDA_CORE_F32_OPS_PER_S
+        row = {"shape": [B, C, D, H, W], "k": k, "dtype": str(dt).replace("torch.", ""),
+               "max_abs_err": err,
+               "ms": time_ms(lambda: dw_conv3(x, w, b)),
+               "plain_ms": time_ms(lambda: dw_conv3_reference(x, w, b), reps=5),
+               "library_ms": time_ms(lambda: F.conv3d(x, w, b, padding=k // 2, groups=C)),
+               "bound_ms": 1e3 * max(t_bytes, t_ops), "bytes_bound_ms": 1e3 * t_bytes,
+               "ops_bound_ms": 1e3 * t_ops,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        rows.append(row)
+        log(f"kernel dw_conv3 {row['shape']} k {k} {row['dtype']}: err {err:.3g}, "
+            f"kernel {1e3 * row['ms']:.2f} us, plain {1e3 * row['plain_ms']:.2f} us, "
+            f"cudnn {1e3 * row['library_ms']:.2f} us, bound "
+            f"{1e3 * row['bound_ms']:.2f} us ({row['bound_by']}; bytes "
+            f"{1e3 * row['bytes_bound_ms']:.2f} us, ops {1e3 * row['ops_bound_ms']:.2f} us)")
+        del x, w, b
+    return rows
+
+
+def phase_slice(name, model_cpu):
     from micformer_tpu_torch.kernels import LAUNCHES, reset_launches
 
     # f32 on both sides: cuDNN convs and cuBLAS matmuls without TF32
@@ -163,40 +238,42 @@ def phase_slice(model_cpu):
     with torch.no_grad():
         reset_launches()
         out_gpu = model_gpu(x.cuda()).cpu()
-        launches = LAUNCHES["window_attention"]
+        launches = dict(LAUNCHES)
         out_cpu = model_cpu(x)
     if out_gpu.shape != (1, 8, 64, 64, 64) or not torch.isfinite(out_gpu).all():
-        raise AssertionError(f"slice: bad output {tuple(out_gpu.shape)}")
+        raise AssertionError(f"slice {name}: bad output {tuple(out_gpu.shape)}")
     err = (out_gpu - out_cpu).abs().max().item()
     scale = out_cpu.abs().max().item()
-    log(f"slice: full-width MicFormer 1x2x64³ f32, card vs CPU max |d| {err:.3g} "
-        f"(output max |y| {scale:.3g}), {launches} kernel launches")
-    if not (err <= 1e-3) or launches != 96 or scale == 0.0:
-        raise AssertionError(f"slice: max |d| {err} (limit 1e-3), launches "
-                             f"{launches} (want 96)")
+    log(f"slice: full-width {name} 1x2x64³ f32, card vs CPU max |d| {err:.3g} "
+        f"(output max |y| {scale:.3g}), kernel launches {launches}")
+    if not (err <= 1e-3) or launches != PATHS[name]["slice"] or scale == 0.0:
+        raise AssertionError(f"slice {name}: max |d| {err} (limit 1e-3), launches "
+                             f"{launches} (want {PATHS[name]['slice']})")
     del model_gpu
     torch.backends.cudnn.allow_tf32 = True
 
 
-def phase_serve(model_cpu, work):
+def phase_serve(name, model_cpu, work):
     from micformer_tpu_torch.cli import serve
     from micformer_tpu_torch.data.nifti import read_nifti
     from micformer_tpu_torch.kernels import LAUNCHES, reset_launches
 
-    weights = os.path.join(work, "weights_bf16.pt")
+    weights = os.path.join(work, f"{name}_bf16.pt")
     torch.save({k: v.bfloat16() for k, v in model_cpu.state_dict().items()}, weights)
     rng = np.random.default_rng(1)
 
     def serve_dir(sub, names):
         """Write one [2, 160³] request per name into a watch directory and
         serve them all; returns (latencies, out directory)."""
-        watch, out = os.path.join(work, sub), os.path.join(work, f"{sub}_out")
+        watch = os.path.join(work, f"{name}_{sub}")
+        out = f"{watch}_out"
         os.makedirs(watch)
-        for name in names:
-            path = os.path.join(watch, f"{name}.npy")
+        for vol in names:
+            path = os.path.join(watch, f"{vol}.npy")
             np.save(path, rng.normal(size=(2, 160, 160, 160)).astype(np.float32))
             os.utime(path, (time.time() - 5,) * 2)
-        lat = serve.main(["--weights", weights, "--watch", watch, "--out", out,
+        lat = serve.main(["--model", name, "--weights", weights,
+                          "--watch", watch, "--out", out,
                           "--roi", "128", "--overlap", "0.5", "--sw-batch-size", "4",
                           "--bf16", "--max-requests", str(len(names)),
                           "--poll", "0.05", "--idle-exit", "300"])
@@ -214,53 +291,68 @@ def phase_serve(model_cpu, work):
     peak = torch.cuda.max_memory_allocated()
 
     per_request = []
-    for name in names:
-        seg = read_nifti(os.path.join(out, f"{name}_seg.nii.gz"))
+    for vol in names:
+        seg = read_nifti(os.path.join(out, f"{vol}_seg.nii.gz"))
         if seg.shape != (160, 160, 160) or seg.max() >= 8:
-            raise AssertionError(f"serve: bad segmentation for {name}: {seg.shape}")
-        with open(os.path.join(out, f"{name}.done")) as f:
-            per_request.append(json.load(f)["launches"]["window_attention"])
-    res = {"requests": len(lat), "cold_latency_s": cold, "latency_s": lat,
-           "p50_s": statistics.median(lat), "vol_per_s": len(lat) / sum(lat),
-           "wall_s": wall, "max_memory_allocated": peak, "launches": launches,
+            raise AssertionError(f"serve {name}: bad segmentation for {vol}: {seg.shape}")
+        with open(os.path.join(out, f"{vol}.done")) as f:
+            per_request.append(json.load(f)["launches"])
+    want = PATHS[name]["request"]
+    res = {"model": name, "requests": len(lat), "cold_latency_s": cold,
+           "latency_s": lat, "p50_s": statistics.median(lat),
+           "vol_per_s": len(lat) / sum(lat), "wall_s": wall,
+           "max_memory_allocated": peak, "launches": launches,
            "launches_per_request": per_request}
-    log(f"serve: {len(lat)} warm volumes 2x160³ bf16 roi 128 sw_batch 4: p50 "
+    log(f"serve: {name} {len(lat)} warm volumes 2x160³ bf16 roi 128 sw_batch 4: p50 "
         f"{res['p50_s']:.4f} s, {res['vol_per_s']:.3f} vol/s, latencies {lat}, "
         f"cold first request {cold:.4f} s, peak {peak / 2 ** 30:.2f} GiB, "
         f"launches {launches}, per request {per_request}")
-    if len(lat) != 3 or launches["window_attention"] != 3 * 192 or per_request != [192] * 3:
-        raise AssertionError(f"serve: {len(lat)} requests, launches {launches}, "
-                             f"per request {per_request} (want 3 and 576)")
+    if (len(lat) != 3 or per_request != [want] * 3
+            or launches != {k: 3 * n for k, n in want.items()}):
+        raise AssertionError(f"serve {name}: {len(lat)} requests, launches {launches}, "
+                             f"per request {per_request} (want 3 requests of {want})")
     return res
 
 
 def main():
     smi = phase_device()
     phase_build()
-    attn = phase_kernels()
+    attn = phase_attention_kernel()
+    dw = phase_dw_kernel()
     from micformer_tpu_torch import registry
 
-    model_cpu = registry.build("micformer", device="cpu",
-                               generator=torch.Generator().manual_seed(0))
-    log(f"model: micformer {sum(p.numel() for p in model_cpu.parameters())} parameters")
-    phase_slice(model_cpu)
     work = os.path.join(ROOT, ".chip_smoke_work")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
+    serve = {}
     try:
-        serve = phase_serve(model_cpu, work)
+        for name in PATHS:
+            model_cpu = registry.build(name, device="cpu",
+                                       generator=torch.Generator().manual_seed(0))
+            log(f"model: {name} {sum(p.numel() for p in model_cpu.parameters())} "
+                "parameters")
+            phase_slice(name, model_cpu)
+            serve[name] = phase_serve(name, model_cpu, work)
+            del model_cpu
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # the kernels line times stage 0 in bf16 in the layout of the path's
-    # self attention: q/k/v sliced from the fused qkv projection
-    stage0 = next(r for r in attn if r["shape"] == list(ATTN_SHAPES[0])
-                  and r["layout"] == "self" and r["dtype"] == "bfloat16")
+    # each kernel's line times its serving path's stage-0 call in bf16: K1
+    # in the layout of the path's self attention (q/k/v sliced from the
+    # fused qkv projection), K3 on MedNeXt-S's [4, 32, 128³]
+    attn0 = next(r for r in attn if r["shape"] == list(ATTN_SHAPES[0])
+                 and r["layout"] == "self" and r["dtype"] == "bfloat16")
+    dw0 = next(r for r in dw if r["shape"] == list(DW_SHAPES[0][0])
+               and r["dtype"] == "bfloat16")
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "dtype")
     kernels = [{"name": "window_attention", **KERNELS["window_attention"],
-                "launches": serve["launches"]["window_attention"],
+                "launches": serve["micformer"]["launches"]["window_attention"],
                 "max_abs_err": max(r["max_abs_err"] for r in attn),
-                **{k: stage0[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                          "library_ms", "shape", "layout", "dtype")}}]
+                "layout": attn0["layout"], **{k: attn0[k] for k in timed}},
+               {"name": "dw_conv3", **KERNELS["dw_conv3"],
+                "launches": serve["mednext"]["launches"]["dw_conv3"],
+                "max_abs_err": max(r["max_abs_err"] for r in dw), "k": dw0["k"],
+                **{k: dw0[k] for k in timed}}]
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -12,12 +12,14 @@ request file is claimed once its mtime is 0.2 s old (write-complete
 heuristic) and never reprocessed; a malformed one gets a <name>.npy.error.
 
 Weights come from --weights, a state_dict saved with torch.save; the model is
-MicFormer, built from the registry with --model-kwargs (JSON) over its
-defaults. PyTorch runs eagerly, so there is no executable to warm: the first
-request builds the kernel library if no earlier call did.
+--model (micformer or mednext), built from the registry with --model-kwargs
+(JSON) over its defaults. A model that returns a list (deep supervision)
+serves its first, full-resolution output. PyTorch runs eagerly, so there is
+no executable to warm: the first request builds the kernel libraries if no
+earlier call did.
 
-    python -m micformer_tpu_torch.cli.serve --weights w.pt --watch in/ \
-        --out out/ --bf16 --max-requests 3
+    python -m micformer_tpu_torch.cli.serve --model mednext --weights w.pt \
+        --watch in/ --out out/ --bf16 --max-requests 3
 """
 
 from __future__ import annotations
@@ -70,6 +72,7 @@ def main(argv=None):
 
     p = argparse.ArgumentParser("micformer_tpu_torch.serve")
     p.add_argument("--weights", required=True, help="state_dict .pt file")
+    p.add_argument("--model", default="micformer", help="registered model family")
     p.add_argument("--model-kwargs", default="{}",
                    help="JSON object of model constructor arguments")
     p.add_argument("--num_classes", type=int, default=8)
@@ -95,19 +98,23 @@ def main(argv=None):
 
     kwargs = dict(json.loads(args.model_kwargs), num_classes=args.num_classes)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    model = registry.build("micformer", dtype=dtype, device=args.device, **kwargs)
+    model = registry.build(args.model, dtype=dtype, device=args.device, **kwargs)
     state = torch.load(args.weights, map_location="cpu", weights_only=True)
     model.load_state_dict(state)
     dev = next(model.parameters()).device
 
+    def predictor(win):
+        out = model(win)
+        return out[0] if isinstance(out, (list, tuple)) else out
+
     def infer(volume):
         logits = sliding_window_inference(
-            volume, (args.roi,) * 3, model, num_classes=args.num_classes,
+            volume, (args.roi,) * 3, predictor, num_classes=args.num_classes,
             overlap=args.overlap, sw_batch_size=args.sw_batch_size,
             step_mode=args.step_mode, mirror_tta=args.mirror_tta)
         return logits.argmax(dim=1).to(torch.uint8)
 
-    print(f"serve: micformer on {dev} (roi {args.roi}, sw_batch "
+    print(f"serve: {args.model} on {dev} (roi {args.roi}, sw_batch "
           f"{args.sw_batch_size}, {dtype}); watching {args.watch}", flush=True)
 
     # producer thread: watch + load (host-bound); main thread: device compute

@@ -8,7 +8,7 @@ Inverts the layout rules of `micformer_tpu/convert/torch_import.py`:
                                               permute(3, 4, 0, 1, 2), spatially flipped
   - Conv3x3ViaDot taps [27, in, out]       -> Conv3d.weight[:, :, dz, dy, dx] =
                                               taps[dz*9 + dy*3 + dx].T
-  - LayerNorm scale / bias                 -> weight / bias
+  - LayerNorm, InstanceNorm scale / bias   -> weight / bias
 
 The walk follows the flax tree alongside the torch modules: a flax name is
 the torch attribute name, except flax's automatic names, which are renamed per
@@ -22,6 +22,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from micformer_tpu_torch.models.layers import InstanceNorm
+
 # flax auto-names -> torch attribute names, per torch module class
 _RENAMES = {
     "SwinBlock3D": {"LayerNorm_0": "norm1", "LayerNorm_1": "norm2", "Mlp_0": "mlp"},
@@ -34,7 +36,7 @@ _RENAMES = {
 
 def _convert_leaf(mod: nn.Module, key: str, a: np.ndarray, path: str):
     """(torch parameter name within mod, tensor) for flax leaf `key`."""
-    if isinstance(mod, nn.LayerNorm):
+    if isinstance(mod, (nn.LayerNorm, InstanceNorm)):
         return {"scale": "weight", "bias": "bias"}[key], a
     if key == "bias":
         return "bias", a

@@ -6,7 +6,7 @@ and nowhere else, so a run can show that a path went through the kernel.
 
 from __future__ import annotations
 
-LAUNCHES: dict[str, int] = {"window_attention": 0}
+LAUNCHES: dict[str, int] = {"window_attention": 0, "dw_conv3": 0}
 
 
 def reset_launches() -> None:

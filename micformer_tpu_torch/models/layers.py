@@ -1,11 +1,20 @@
-"""The building blocks of MicFormer, on channels-last [B, D, H, W, C] tensors.
+"""The building blocks of MicFormer and MedNeXt.
 
-Counterpart of the subset of `micformer_tpu/models/layers.py` that MicFormer
-uses: Mlp, DropPath, WindowAttention3D (self and cross, no relative-position
-bias), the unshifted SwinBlock3D, PatchEmbed3D, PatchMergingConv,
-PatchExpandConv and pad_to_multiple. The JAX package's lane-major and
-via-dot forms are TPU layouts of the same math; this is the plain math.
-Convolutions take the channels-first view of the channels-last tensor.
+Counterpart of the subsets of `micformer_tpu/models/layers.py` that the two
+models use. The JAX package's lane-major, via-dot, blocked and W-packed
+forms are TPU layouts of the same math; this is the plain math.
+
+MicFormer's blocks work on channels-last [B, D, H, W, C] tensors: Mlp,
+DropPath, WindowAttention3D (self and cross, no relative-position bias), the
+unshifted SwinBlock3D, PatchEmbed3D, PatchMergingConv, PatchExpandConv and
+pad_to_multiple. Their convolutions take the channels-first view.
+
+MedNeXt's blocks work on channels-first [B, C, D, H, W] tensors, the layout
+the depthwise kernel takes, in which cuDNN's strided and transposed convs,
+the norm and GELU run natively and a 1³ conv is one GEMM per batch element:
+InstanceNorm, DepthwiseConv3D, PointwiseConv, PointwiseTranspose2 and
+zero_dilate. Their parameters have the shapes of the torch layers they
+stand for, so `convert.from_flax` maps the flax tree onto them.
 """
 
 from __future__ import annotations
@@ -14,6 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from micformer_tpu_torch.kernels.dw_conv3 import dw_conv3
 from micformer_tpu_torch.ops.attention import (
     merge_heads, multi_head_attention, split_heads,
 )
@@ -162,3 +172,108 @@ class PatchExpandConv(nn.Module):
 
     def forward(self, x):
         return self.norm(conv_cl(self.conv, x))
+
+
+class InstanceNorm(nn.Module):
+    """Affine instance norm of [B, C, D, H, W] over D, H, W (MedNeXt's
+    GroupNorm with one group per channel). Statistics in f32 as the JAX
+    default computes them, E[x²] − E[x]² clamped at 0; output in x's dtype."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x):
+        dims = (2, 3, 4)
+        n = x.shape[2] * x.shape[3] * x.shape[4]
+        xf = x.float()
+        mean = xf.sum(dims, keepdim=True) / n
+        var = (xf.square().sum(dims, keepdim=True) / n - mean.square()).clamp_min(0.0)
+        shape = (1, -1, 1, 1, 1)
+        # ((x - mean) * rsqrt(var + eps)) * weight + bias as one pass over x
+        # with per-(b, c) factors
+        scale = torch.rsqrt(var + self.eps) * self.weight.float().view(shape)
+        shift = self.bias.float().view(shape) - mean * scale
+        return torch.addcmul(shift, xf, scale).to(x.dtype)
+
+
+class DepthwiseConv3D(nn.Conv3d):
+    """Depthwise k³ conv with bias on [B, C, D, H, W] (weight [C, 1, k, k, k]).
+
+    Stride 1 with SAME padding k//2 runs the depthwise kernel (`dw_conv3`);
+    stride 2 is cuDNN's grouped conv at padding k//2; `pad`, per axis
+    (lo, hi), zero-pads first (a symmetric k//2 pad at stride 1 is the SAME
+    conv and runs the kernel too); `transpose2` is the stride-2 transpose
+    conv of MedNeXt's default up block, exactly 2L per axis:
+    conv(zero_dilate(x), pad (k//2 + 1, k//2))."""
+
+    def __init__(self, channels: int, kernel: int = 3, stride: int = 1,
+                 pad=None, transpose2: bool = False):
+        super().__init__(channels, channels, kernel, stride=stride, groups=channels)
+        self.pad = None if pad is None else tuple(tuple(a) for a in pad)
+        self.transpose2 = transpose2
+
+    def forward(self, x):
+        p, s = self.kernel_size[0] // 2, self.stride[0]
+        if self.transpose2:
+            # conv_transpose3d at padding p-1 with the flipped kernel yields
+            # dilate-and-pad (p+1, p) plus one extra plane per axis; keep 2L
+            D, H, W = x.shape[2:]
+            y = F.conv_transpose3d(x, self.weight.flip((2, 3, 4)), self.bias,
+                                   stride=2, padding=p - 1, groups=self.groups)
+            return y[:, :, :2 * D, :2 * H, :2 * W]
+        if s == 1 and self.pad in (None, ((p, p),) * 3):
+            # a tensor with size-1 axes can come out of F.pad channels-last;
+            # on the serving path x is already contiguous and this is free
+            return dw_conv3(x.contiguous(), self.weight, self.bias)
+        if self.pad is None:
+            return F.conv3d(x, self.weight, self.bias, s, p, groups=self.groups)
+        (dl, dh), (hl, hh), (wl, wh) = self.pad
+        return F.conv3d(F.pad(x, (wl, wh, hl, hh, dl, dh)), self.weight, self.bias,
+                        s, groups=self.groups)
+
+
+class PointwiseConv(nn.Conv3d):
+    """1³ conv with bias on [B, C, D, H, W] as one GEMM per batch element;
+    stride 2 takes the even indices (ceil(n/2) per axis)."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1):
+        super().__init__(in_channels, out_channels, 1, stride=stride)
+
+    def gemm(self, x):
+        B, C, D, H, W = x.shape
+        Fo = self.out_channels
+        # bmm with the weight broadcast over the batch: torch.matmul of a 2-D
+        # weight by a 3-D x would fold x into [B·DHW, C], a transposing copy
+        w = self.weight.view(1, Fo, C).expand(B, Fo, C)
+        y = torch.bmm(w, x.reshape(B, C, D * H * W))
+        return y.add_(self.bias.view(Fo, 1)).view(B, Fo, D, H, W)
+
+    def forward(self, x):
+        if self.stride[0] == 2:
+            x = x[:, :, ::2, ::2, ::2]
+        return self.gemm(x)
+
+
+class PointwiseTranspose2(PointwiseConv):
+    """MedNeXt's default up-block residual: a 1³ conv over the lead-padded
+    zero-dilated input, [B, C, L...] -> [B, F, 2L...]. The all-odd parity
+    class holds W·x[q] + b, every other voxel the bias."""
+
+    def forward(self, x):
+        B, C, D, H, W = x.shape
+        Fo = self.out_channels
+        out = self.bias.view(1, Fo, 1, 1, 1).expand(B, Fo, 2 * D, 2 * H, 2 * W).clone()
+        out[:, :, 1::2, 1::2, 1::2] = self.gemm(x)
+        return out
+
+
+def zero_dilate(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """Insert factor-1 zeros between the spatial elements of [B, C, D, H, W]:
+    each spatial size n becomes factor*n - (factor-1)."""
+    B, C, D, H, W = x.shape
+    out = x.new_zeros((B, C) + tuple(factor * n - (factor - 1) for n in (D, H, W)))
+    out[:, :, ::factor, ::factor, ::factor] = x
+    return out

@@ -43,6 +43,8 @@ def register(name: str, **defaults):
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Re-draw every parameter: kernels from a truncated normal of variance
     1/fan_in, biases zero, norm weights one."""
+    from micformer_tpu_torch.models.layers import InstanceNorm
+
     for mod in model.modules():
         if isinstance(mod, (nn.Linear, nn.Conv3d, nn.ConvTranspose3d)):
             w = mod.weight
@@ -55,7 +57,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                                       generator=generator)
                 if mod.bias is not None:
                     mod.bias.zero_()
-        elif isinstance(mod, nn.LayerNorm):
+        elif isinstance(mod, (nn.LayerNorm, InstanceNorm)):
             nn.init.ones_(mod.weight)
             nn.init.zeros_(mod.bias)
 

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Device-time breakdown of one forward of the port's MicFormer on one GPU.
+"""Device-time breakdown of one forward of each of the port's served models
+on one GPU.
 
     python3 profile_torch_forward.py
 
-Full-width MicFormer (seeded random weights, bf16) on a [4, 2, 128³] input:
-one sw_batch chunk of the serving path (roi 128, sw_batch 4). After two
-warm-up forwards, torch.profiler records three forwards; the script prints the device time
-per forward grouped by kind of kernel, the top kernels, and the share of the
-wall time the device was busy.
+Full-width MicFormer and MedNeXt-S k3 (seeded random weights, bf16), each on
+a [4, 2, 128³] input: one sw_batch chunk of the serving path (roi 128,
+sw_batch 4). After two warm-up forwards, torch.profiler records three
+forwards; the script prints, per model, the device time per forward grouped
+by kind of kernel (with the hand-written kernels' shares), the top kernels,
+and the share of the wall time the device was busy.
 """
 
 from __future__ import annotations
@@ -18,8 +20,10 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 BATCH, ROI, REPS = 4, 128, 3   # the serving chunk: sw_batch 4, roi 128³
+MODELS = ("micformer", "mednext")
 # kernel-name fragments -> group, first match wins
 GROUPS = [("window_attention", "K1 window attention"),
+          ("dw_conv3", "K3 depthwise conv"),
           ("grid_sampler", "warp (grid_sample)"),
           ("layer_norm", "layer norm"), ("gelu", "gelu"),
           ("conv", "convolution (cuDNN)"), ("dgrad", "convolution (cuDNN)"),
@@ -35,13 +39,10 @@ def group_of(name: str) -> str:
     return next((g for frag, g in GROUPS if frag in low), "other")
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_torch_forward: CUDA is not available")
-
+def profile_model(name: str) -> str:
     from micformer_tpu_torch import registry
 
-    model = registry.build("micformer", dtype=torch.bfloat16, device="cuda",
+    model = registry.build(name, dtype=torch.bfloat16, device="cuda",
                            generator=torch.Generator().manual_seed(0))
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn((BATCH, 2) + (ROI,) * 3, generator=gen, device="cuda")
@@ -70,7 +71,7 @@ def main():
             busy += t - max(s, end)
             end = t
     total = sum(by_group.values())
-    lines = [f"{torch.cuda.get_device_name(0)}; MicFormer bf16 forward, input "
+    lines = [f"{torch.cuda.get_device_name(0)}; {name} bf16 forward, input "
              f"[{BATCH}, 2, {ROI}³], {REPS} forwards profiled",
              f"wall {wall_us / REPS / 1e3:.3f} ms/forward, device busy "
              f"{busy / REPS / 1e3:.3f} ms/forward ({100 * busy / wall_us:.1f} % of "
@@ -81,7 +82,15 @@ def main():
     lines.append("top kernels (ms/forward):")
     for n, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         lines.append(f"  {us / REPS / 1e3:9.3f}  {n[:110]}")
-    print("\n".join(lines), flush=True)
+    return "\n".join(lines)
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_forward: CUDA is not available")
+    for name in MODELS:
+        print(profile_model(name), flush=True)
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

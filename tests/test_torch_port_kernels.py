@@ -1,4 +1,5 @@
-"""The window-attention CUDA kernel against its plain version, on the card.
+"""The port's CUDA kernels against their plain versions, on the card:
+window attention (K1) and the depthwise k³ conv (K3).
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only the port's dependencies:
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from micformer_tpu_torch.kernels import LAUNCHES
+from micformer_tpu_torch.kernels.dw_conv3 import dw_conv3, dw_conv3_reference
 from micformer_tpu_torch.kernels.window_attention import (
     window_attention, window_attention_reference,
 )
@@ -87,3 +89,53 @@ def test_window_attention_counts_each_launch_on_card(cuda_device):
     window_attention(q[:0], q[:0], q[:0])                     # N = 0: no launch
     window_attention_reference(q, q, q)
     assert LAUNCHES["window_attention"] == before + 2
+
+
+# f32: 27-125 f32 terms summed in another order; bf16: one rounding of
+# outputs up to about 10
+DW_TOL = {torch.float32: dict(rtol=0.0, atol=1e-4),
+          torch.bfloat16: dict(rtol=1e-2, atol=2e-2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k,offset", [
+    ((4, 256, 16, 16, 16), 3, 0),       # MedNeXt-S stage 3 at sw_batch 4
+    ((4, 256, 16, 16, 16), 5, 0),
+    ((2, 7, 19, 37, 45), 3, 0),         # ragged: no axis a multiple of the tile
+    ((1, 5, 13, 9, 70), 5, 0),
+    ((2, 3, 6, 5, 7), 5, 0),            # fewer W columns than halo threads
+    ((1, 6, 5, 7, 12), 3, 1),           # x one element off 16-byte alignment
+])
+def test_dw_conv3_kernel_matches_reference_on_card(cuda_device, shape, k, offset):
+    rng = np.random.default_rng(sum(shape) + k)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda_device)
+    w = torch.from_numpy(rng.normal(size=(shape[1], 1, k, k, k)).astype(np.float32)
+                         / k ** 1.5).to(cuda_device)
+    b = torch.from_numpy(rng.normal(size=shape[1]).astype(np.float32)).to(cuda_device)
+    for dt in (torch.float32, torch.bfloat16):
+        # contiguous, but starting `offset` elements into its storage
+        xd = torch.empty(x.numel() + offset, dtype=dt, device=cuda_device)[offset:]
+        xd = xd.view(shape).copy_(x)
+        for bias in (None, b.to(dt)):
+            got = dw_conv3(xd, w.to(dt), bias)
+            torch.cuda.synchronize()
+            ref = dw_conv3_reference(xd, w.to(dt), bias)
+            assert got.dtype == dt and got.shape == x.shape
+            torch.testing.assert_close(got.float(), ref.float(), **DW_TOL[dt])
+
+
+@pytest.mark.cuda
+def test_dw_conv3_kernel_raises_and_counts_on_card(cuda_device):
+    x = torch.randn(2, 4, 6, 6, 6, device=cuda_device)
+    w = torch.randn(4, 1, 3, 3, 3, device=cuda_device)
+    with pytest.raises(ValueError):
+        dw_conv3(x.half(), w.half())
+    with pytest.raises(ValueError):
+        dw_conv3(x.transpose(3, 4), w)
+    with pytest.raises(ValueError):
+        dw_conv3(x, w.cpu())
+    before = LAUNCHES["dw_conv3"]
+    dw_conv3(x, w)
+    dw_conv3(x[:0], w)                                        # empty: no launch
+    dw_conv3_reference(x, w)
+    assert LAUNCHES["dw_conv3"] == before + 1

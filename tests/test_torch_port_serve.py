@@ -48,7 +48,7 @@ def test_serve_answers_npy_requests_on_cpu(tmp_path):
         np.testing.assert_array_equal(seg, logits.argmax(dim=1)[0].numpy())
         done = json.loads((out / f"{name}.done").read_text())
         assert done["request"] == name and done["latency_s"] > 0
-        assert done["launches"] == {"window_attention": 0}
+        assert done["launches"] == {"window_attention": 0, "dw_conv3": 0}
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -66,5 +66,6 @@ def test_port_imports_no_jax_and_no_jax_package():
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     lines = res.stdout.strip().splitlines()
-    assert "micformer_tpu_torch.cli.serve" in lines[0]
+    for name in ("cli.serve", "models.mednext", "kernels.dw_conv3"):
+        assert f"micformer_tpu_torch.{name}" in lines[0], name
     assert lines[-1] == "BAD []", lines[-1]
