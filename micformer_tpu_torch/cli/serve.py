@@ -86,6 +86,9 @@ def main(argv=None):
     p.add_argument("--mirror-tta", action="store_true")
     p.add_argument("--bf16", action="store_true",
                    help="serve in bfloat16 (the bench protocol)")
+    p.add_argument("--fused-attention", action="store_true",
+                   help="MicFormer: run attention through the fused kernel K2 "
+                        "(the JAX package's MICFORMER_FUSED_ATTENTION=1)")
     p.add_argument("--poll", type=float, default=0.5,
                    help="watch-directory poll interval (seconds)")
     p.add_argument("--max-requests", type=int, default=None,
@@ -97,6 +100,8 @@ def main(argv=None):
     os.makedirs(args.out, exist_ok=True)
 
     kwargs = dict(json.loads(args.model_kwargs), num_classes=args.num_classes)
+    if args.fused_attention:
+        kwargs["fused_attention"] = True
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     model = registry.build(args.model, dtype=dtype, device=args.device, **kwargs)
     state = torch.load(args.weights, map_location="cpu", weights_only=True)

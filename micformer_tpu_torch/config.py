@@ -1,0 +1,196 @@
+"""Config: one dataclass tree, YAML loading and command-line overrides.
+
+Counterpart of `micformer_tpu/config.py`, restricted to the flags the
+training slice reads, plus `--fused-attention` (the JAX package's
+MICFORMER_FUSED_ATTENTION=1), `--device` and `--model-kwargs`. Every flag
+defaults to None, so only a flag that is given overrides the YAML preset.
+YAML needs PyYAML, imported only when a --cfg file is given; the resolved
+config is saved as JSON.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+from dataclasses import dataclass, field
+
+
+@dataclass
+class ModelConfig:
+    name: str = "micformer"
+    num_classes: int = 8
+    in_channels: int = 2
+    embed_dim: int = 48
+    extra: dict = field(default_factory=dict)
+    fused_attention: bool = False
+
+
+@dataclass
+class DataConfig:
+    data_root: str = ""
+    cache_dir: str = ""
+    target_shape: tuple = (128, 128, 128)
+    fold: int = 0
+    normalisation: str = "minmax"
+    workers: int = 2
+
+
+@dataclass
+class TrainerConfig:
+    epochs: int = 300
+    batch_size: int = 1
+    lr: float = 1e-4
+    weight_decay: float = 0.0
+    val_every: int = 10
+    seed: int = 1234
+    resume: bool = False
+    optimizer: str = "adam"
+    scheduler: str = "cosine"
+    scheduler_per_batch: bool = True
+    grad_clip_norm: float | None = None
+    run_dir: str = "runs/run"
+    bf16: bool = False
+    patience: int | None = None
+    augment: str = "monai"
+
+
+@dataclass
+class InferenceConfig:
+    roi: tuple = (128, 128, 128)
+    overlap: float = 0.5
+    sw_batch_size: int = 1
+    blend: str = "gaussian"
+    step_mode: str = "monai"
+    mirror_tta: bool = False
+
+
+@dataclass
+class Config:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainerConfig = field(default_factory=TrainerConfig)
+    infer: InferenceConfig = field(default_factory=InferenceConfig)
+
+
+def _apply_dict(cfg, d: dict):
+    for k, v in d.items():
+        if not hasattr(cfg, k):
+            raise KeyError(f"unknown config key: {k}")
+        cur = getattr(cfg, k)
+        if dataclasses.is_dataclass(cur) and isinstance(v, dict):
+            _apply_dict(cur, v)
+        else:
+            if isinstance(cur, tuple) and isinstance(v, (list, tuple)):
+                v = tuple(v)
+            setattr(cfg, k, v)
+
+
+def load_config(path: str | None = None, overrides: dict | None = None) -> Config:
+    cfg = Config()
+    if path:
+        import yaml
+
+        with open(path) as f:
+            _apply_dict(cfg, yaml.safe_load(f) or {})
+    if overrides:
+        _apply_dict(cfg, overrides)
+    return cfg
+
+
+def save_config(cfg: Config, path: str):
+    """The resolved config as JSON."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=1)
+
+
+def build_argparser(defaults: Config | None = None) -> argparse.ArgumentParser:
+    d = defaults or Config()
+    p = argparse.ArgumentParser("micformer_tpu_torch.train")
+    p.add_argument("--data", default=None, help="MM-WHS root (ct_*_image.nii.gz, ...)")
+    p.add_argument("--cache", default=None, help="preprocessed-volume cache directory")
+    p.add_argument("--model", default=None, help=f"model family (default {d.model.name})")
+    p.add_argument("--model-kwargs", default=None,
+                   help="JSON object of model constructor arguments (over model.extra)")
+    p.add_argument("--fused-attention", action="store_true", default=None,
+                   help="run attention through the fused kernel K2 (the JAX "
+                        "package's MICFORMER_FUSED_ATTENTION=1)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+    p.add_argument("--epochs", type=int, default=None, help=f"default {d.train.epochs}")
+    p.add_argument("--batch-size", type=int, default=None,
+                   help=f"default {d.train.batch_size}")
+    p.add_argument("--lr", type=float, default=None, help=f"default {d.train.lr}")
+    p.add_argument("--wd", type=float, default=None,
+                   help=f"weight decay (default {d.train.weight_decay})")
+    p.add_argument("--val", type=int, default=None,
+                   help=f"validate every N epochs (default {d.train.val_every})")
+    p.add_argument("--fold", type=int, default=None, help=f"default {d.data.fold}")
+    p.add_argument("--num_classes", type=int, default=None,
+                   help=f"default {d.model.num_classes}")
+    p.add_argument("--seed", type=int, default=None, help=f"default {d.train.seed}")
+    p.add_argument("--cfg", default=None, help="yaml config file")
+    p.add_argument("--resume", action="store_true", default=None)
+    p.add_argument("--workers", type=int, default=None)
+    p.add_argument("--run-dir", default=None, help=f"default {d.train.run_dir}")
+    p.add_argument("--target-shape", type=int, default=None,
+                   help="cubic target shape (and validation roi), e.g. 32 for smoke runs")
+    p.add_argument("--bf16", action="store_true", default=None)
+    p.add_argument("--optimizer", default=None, choices=["adam", "adamw", "sgd_nesterov"])
+    p.add_argument("--scheduler", default=None, choices=["cosine", "poly", "constant"])
+    p.add_argument("--scheduler-per-batch", default=None, choices=["true", "false"],
+                   help="step the schedule per batch (the reference's quirk, the "
+                        "default) or per epoch")
+    p.add_argument("--augment", default=None, choices=["monai", "none"],
+                   help="train-time transform stack (default monai)")
+    p.add_argument("--patience", type=int, default=None,
+                   help="stop after N validations without improvement")
+    p.add_argument("--grad-clip", type=float, default=None)
+    p.add_argument("--throughput", action="store_true", default=None,
+                   help="time training steps (volumes/s) instead of training")
+    return p
+
+
+# (args attribute) -> (config section, field), applied when the flag is given
+_ARG_MAP = {
+    "data": ("data", "data_root"),
+    "cache": ("data", "cache_dir"),
+    "fold": ("data", "fold"),
+    "workers": ("data", "workers"),
+    "model": ("model", "name"),
+    "num_classes": ("model", "num_classes"),
+    "fused_attention": ("model", "fused_attention"),
+    "epochs": ("train", "epochs"),
+    "batch_size": ("train", "batch_size"),
+    "lr": ("train", "lr"),
+    "wd": ("train", "weight_decay"),
+    "val": ("train", "val_every"),
+    "seed": ("train", "seed"),
+    "resume": ("train", "resume"),
+    "run_dir": ("train", "run_dir"),
+    "bf16": ("train", "bf16"),
+    "optimizer": ("train", "optimizer"),
+    "scheduler": ("train", "scheduler"),
+    "augment": ("train", "augment"),
+    "grad_clip": ("train", "grad_clip_norm"),
+    "patience": ("train", "patience"),
+}
+
+
+def config_from_args(args) -> Config:
+    cfg = load_config(args.cfg)
+    for attr, (section, field_name) in _ARG_MAP.items():
+        v = getattr(args, attr, None)
+        if v is not None:
+            setattr(getattr(cfg, section), field_name, v)
+    if getattr(args, "model_kwargs", None):
+        cfg.model.extra = {**cfg.model.extra, **json.loads(args.model_kwargs)}
+    spb = getattr(args, "scheduler_per_batch", None)
+    if spb is not None:
+        cfg.train.scheduler_per_batch = spb == "true"
+    if getattr(args, "target_shape", None):
+        cfg.data.target_shape = (args.target_shape,) * 3
+        cfg.infer.roi = cfg.data.target_shape
+    return cfg

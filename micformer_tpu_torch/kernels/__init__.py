@@ -6,7 +6,9 @@ and nowhere else, so a run can show that a path went through the kernel.
 
 from __future__ import annotations
 
-LAUNCHES: dict[str, int] = {"window_attention": 0, "dw_conv3": 0}
+LAUNCHES: dict[str, int] = {"window_attention": 0, "window_attention_backward": 0,
+                             "fused_window_attention": 0,
+                             "fused_window_attention_backward": 0, "dw_conv3": 0}
 
 
 def reset_launches() -> None:

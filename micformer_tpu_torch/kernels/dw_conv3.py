@@ -4,8 +4,10 @@ Counterpart of `micformer_tpu/ops/pallas/dw_stencil.py` (`dw_conv3_pallas`),
 on the port's channels-first layout: x [B, C, D, H, W] contiguous and w the
 Conv3d depthwise weight [C, 1, k, k, k]. The CUDA kernel is
 `csrc/dw_conv3.cu` (its header gives the bound and the design). Forward
-only: serving needs no gradient. An optional per-channel bias is added
-before the one rounding of the output, so the caller makes no second pass.
+only: its backward comes with the MedNeXt training slice, and until then a
+CUDA call that autograd would need to differentiate raises. An optional
+per-channel bias is added before the one rounding of the output, so the
+caller makes no second pass.
 
 `dw_conv3` launches the kernel for CUDA tensors and raises on what the kernel
 does not take; for CPU tensors it computes `dw_conv3_reference`, the plain
@@ -90,6 +92,11 @@ def dw_conv3(x, w, bias=None):
         return dw_conv3_reference(x, w, bias)
     if x.device.type != "cuda":
         raise ValueError(f"dw_conv3: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, bias)):
+        raise NotImplementedError(
+            "dw_conv3: the CUDA kernel has no backward yet (it comes with the "
+            "MedNeXt training slice); call it under torch.no_grad()")
     B, C, D, H, W = x.shape
     out = torch.empty_like(x)
     if out.numel() == 0:

@@ -84,13 +84,15 @@ class WindowAttention3D(nn.Module):
 
     cross=False: fused qkv projection (split into thirds). cross=True: q from
     x, k and v from `context` through one kv projection (k is the first
-    half)."""
+    half). fused_attention selects `multi_head_attention(..., fused=True)`,
+    the fused kernel K2 on the card."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
-                 cross: bool = False):
+                 cross: bool = False, fused_attention: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.cross = cross
+        self.fused_attention = fused_attention
         if cross:
             self.q = nn.Linear(dim, dim, bias=qkv_bias)
             self.kv = nn.Linear(dim, 2 * dim, bias=qkv_bias)
@@ -106,7 +108,7 @@ class WindowAttention3D(nn.Module):
         else:
             q, k, v = self.qkv(x).chunk(3, dim=-1)
         out = multi_head_attention(split_heads(q, h), split_heads(k, h),
-                                   split_heads(v, h))
+                                   split_heads(v, h), fused=self.fused_attention)
         return self.proj(merge_heads(out))
 
 
@@ -116,11 +118,12 @@ class SwinBlock3D(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, window_size=(4, 4, 4),
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
-                 drop_path: float = 0.0):
+                 drop_path: float = 0.0, fused_attention: bool = False):
         super().__init__()
         self.window_size = tuple(window_size)
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn = WindowAttention3D(dim, num_heads, qkv_bias)
+        self.attn = WindowAttention3D(dim, num_heads, qkv_bias,
+                                      fused_attention=fused_attention)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
         self.drop_path = DropPath(drop_path)

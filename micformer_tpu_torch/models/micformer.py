@@ -6,6 +6,12 @@ DualStreamStage (unrolled) and MicFormer with the two-op head (transposed
 conv k=s=patch, then a k3 conv), of which the JAX package's fused head is an
 exact reformulation. Submodules carry the JAX parameter tree's names where
 it names them, so `convert.from_flax` maps one onto the other.
+
+Training: `model.train()` turns DropPath on (drawing from the generator the
+caller passes to `forward`); `use_remat` recomputes each block's activations
+in the backward (`torch.utils.checkpoint`, non-reentrant), the counterpart of
+the JAX `nn.remat`; `fused_attention` runs every attention through the fused
+kernel K2 on the card (the JAX MICFORMER_FUSED_ATTENTION=1).
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from micformer_tpu_torch import registry
 from micformer_tpu_torch.models.layers import (
@@ -39,7 +46,7 @@ class CrossBlock3D(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size=(2, 2, 2),
                  hidden_channels: int = 16, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, drop_path: float = 0.0,
-                 faithful_grid: bool = True):
+                 faithful_grid: bool = True, fused_attention: bool = False):
         super().__init__()
         self.window_size = tuple(window_size)
         self.faithful_grid = faithful_grid
@@ -47,7 +54,8 @@ class CrossBlock3D(nn.Module):
         self.offset_conv1 = nn.Conv3d(2 * dim, hidden_channels, 3, padding=1)
         self.offset_norm = nn.LayerNorm(hidden_channels, eps=LN_EPS)
         self.offset_conv2 = nn.Conv3d(hidden_channels, 3, 1, bias=False)
-        self.cross_attn = WindowAttention3D(dim, num_heads, qkv_bias, cross=True)
+        self.cross_attn = WindowAttention3D(dim, num_heads, qkv_bias, cross=True,
+                                            fused_attention=fused_attention)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
         self.drop_path = DropPath(drop_path)
@@ -75,18 +83,22 @@ class CrossBlock3D(nn.Module):
 class DualStreamStage(nn.Module):
     """depth x (self block per stream, then cross blocks both ways), then one
     resample module shared by both streams. Returns the pre-resample streams
-    and the resampled ones."""
+    and the resampled ones. use_remat checkpoints each block (see
+    `_block`)."""
 
     def __init__(self, dim: int, depth: int, num_heads: int,
                  window_size=(2, 2, 2), drop_paths: Sequence[float] = (0.0,),
                  resample: str | None = None, qkv_bias: bool = True,
-                 faithful_grid: bool = True):
+                 faithful_grid: bool = True, use_remat: bool = False,
+                 fused_attention: bool = False):
         super().__init__()
         self.depth = depth
+        self.use_remat = use_remat
         for i in range(depth):
             dp = drop_paths[i] if i < len(drop_paths) else drop_paths[-1]
             common = dict(dim=dim, num_heads=num_heads, window_size=window_size,
-                          qkv_bias=qkv_bias, drop_path=dp)
+                          qkv_bias=qkv_bias, drop_path=dp,
+                          fused_attention=fused_attention)
             self.add_module(f"self1_{i}", SwinBlock3D(**common))
             self.add_module(f"self2_{i}", SwinBlock3D(**common))
             self.add_module(f"cross1_{i}", CrossBlock3D(faithful_grid=faithful_grid, **common))
@@ -94,13 +106,37 @@ class DualStreamStage(nn.Module):
         self.downsample = PatchMergingConv(dim) if resample == "merge" else None
         self.upsample = PatchExpandConv(dim) if resample == "expand" else None
 
+    def _block(self, name, *args, generator=None):
+        """Run block `name` on args; under use_remat with autograd on, through
+        a non-reentrant checkpoint whose recompute replays the generator's
+        draws (it sets the generator to its state before the block, then
+        back to where it was), so DropPath keeps the same masks."""
+        block = getattr(self, name)
+        if not (self.use_remat and torch.is_grad_enabled()):
+            return block(*args, generator)
+        start = None if generator is None else generator.get_state()
+        first = [True]
+
+        def run(*a):
+            if first[0] or generator is None:
+                first[0] = False
+                return block(*a, generator)
+            now = generator.get_state()
+            generator.set_state(start)
+            try:
+                return block(*a, generator)
+            finally:
+                generator.set_state(now)
+
+        return checkpoint(run, *args, use_reentrant=False)
+
     def forward(self, x, xa, generator=None):
         for i in range(self.depth):
-            x = getattr(self, f"self1_{i}")(x, generator)
-            xa = getattr(self, f"self2_{i}")(xa, generator)
+            x = self._block(f"self1_{i}", x, generator=generator)
+            xa = self._block(f"self2_{i}", xa, generator=generator)
             # cross2 reads the x from before cross1 updated it
-            x, xa = (getattr(self, f"cross1_{i}")(x, xa, generator),
-                     getattr(self, f"cross2_{i}")(xa, x, generator))
+            x, xa = (self._block(f"cross1_{i}", x, xa, generator=generator),
+                     self._block(f"cross2_{i}", xa, x, generator=generator))
         resample = self.downsample if self.downsample is not None else self.upsample
         if resample is None:
             return x, xa, x, xa
@@ -117,7 +153,8 @@ class MicFormer(nn.Module):
                  depths: Sequence[int] = (2, 2, 6, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24),
                  window_size=(2, 2, 2), patch_size=(4, 4, 4),
-                 drop_path_rate: float = 0.2, faithful_grid: bool = True):
+                 drop_path_rate: float = 0.2, faithful_grid: bool = True,
+                 use_remat: bool = False, fused_attention: bool = False):
         super().__init__()
         n = len(depths)
         self.n_layers = n
@@ -128,7 +165,8 @@ class MicFormer(nn.Module):
             return DualStreamStage(
                 embed_dim * 2 ** i, depths[i], num_heads[i], window_size,
                 drop_paths=tuple(dpr[sum(depths[:i]):sum(depths[:i + 1])]),
-                resample=resample, faithful_grid=faithful_grid)
+                resample=resample, faithful_grid=faithful_grid, use_remat=use_remat,
+                fused_attention=fused_attention)
 
         for i in range(n):
             self.add_module(f"enc{i}", stage(i, "merge" if i < n - 1 else None))

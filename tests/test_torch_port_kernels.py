@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions, on the card:
-window attention (K1) and the depthwise k³ conv (K3).
+window attention (K1) and its backward, the fused window attention (K2) and
+its backward, and the depthwise k³ conv (K3).
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only the port's dependencies:
@@ -15,9 +16,20 @@ import torch
 
 from micformer_tpu_torch.kernels import LAUNCHES
 from micformer_tpu_torch.kernels.dw_conv3 import dw_conv3, dw_conv3_reference
-from micformer_tpu_torch.kernels.window_attention import (
-    window_attention, window_attention_reference,
+from micformer_tpu_torch.kernels.fused_window_attention import (
+    fused_window_attention, fused_window_attention_backward,
+    fused_window_attention_backward_reference, fused_window_attention_reference,
 )
+from micformer_tpu_torch.kernels.window_attention import (
+    window_attention, window_attention_backward, window_attention_backward_reference,
+    window_attention_reference,
+)
+
+# f32: sums of at most 32 f32 terms in another order; bf16: one rounding of
+# values up to about 10 (the kernel and the plain version both compute in f32)
+ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+BWD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
+           torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 
 
 @pytest.fixture
@@ -139,3 +151,113 @@ def test_dw_conv3_kernel_raises_and_counts_on_card(cuda_device):
     dw_conv3(x[:0], w)                                        # empty: no launch
     dw_conv3_reference(x, w)
     assert LAUNCHES["dw_conv3"] == before + 1
+
+
+def _layouts(dev, dt, N, T, h, d, seed):
+    """q, k, v [N, T, h, d] three ways: dense; sliced from one fused qkv
+    projection (self attention, row stride 3·h·d); q dense with k, v sliced
+    from a fused kv projection (cross attention, row stride 2·h·d)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    C = h * d
+    dense = tuple(rand(N, T, h, d) for _ in range(3))
+    self_ = tuple(t.view(N, T, h, d) for t in rand(N, T, 3 * C).chunk(3, dim=-1))
+    cross = (rand(N, T, h, d),) + tuple(t.view(N, T, h, d)
+                                        for t in rand(N, T, 2 * C).chunk(2, dim=-1))
+    return {"dense": dense, "self": self_, "cross": cross}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,T,h,d", [(4096, 8, 3, 16), (37, 8, 24, 16), (300, 4, 2, 8),
+                                     (64, 16, 5, 32), (9, 16, 1, 64)])
+def test_window_attention_backward_kernel_matches_reference_on_card(cuda_device, N, T, h, d):
+    """K1's backward against its plain version: f32 and bf16, dense and
+    fused-projection layouts, a ragged window count."""
+    for dt in (torch.float32, torch.bfloat16):
+        for name, (q, k, v) in _layouts(cuda_device, dt, N, T, h, d, N + d).items():
+            g = torch.randn(q.shape, device=cuda_device).to(dt)
+            got = window_attention_backward(q, k, v, g)
+            torch.cuda.synchronize()
+            ref = window_attention_backward_reference(q, k, v, g)
+            for a, b in zip(got, ref):
+                assert a.dtype == dt and a.is_contiguous() and a.shape == b.shape
+                torch.testing.assert_close(a.float(), b.float(), **BWD_TOL[dt],
+                                           msg=f"{name} {dt}")
+
+
+@pytest.mark.cuda
+def test_window_attention_autograd_on_card(cuda_device):
+    """window_attention under autograd: the backward kernel runs, once per
+    call, and gives the plain version's gradients; cross lengths Tq != Tk."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(a).to(cuda_device).requires_grad_()
+               for a in _qkv(3, 50, 4, 12, 3, 16))
+    g = torch.from_numpy(rng.normal(size=(50, 4, 3, 16)).astype(np.float32)).to(cuda_device)
+    before = dict(LAUNCHES)
+    window_attention(q, k, v).backward(g)
+    assert LAUNCHES["window_attention"] == before["window_attention"] + 1
+    assert LAUNCHES["window_attention_backward"] == before["window_attention_backward"] + 1
+    ref = window_attention_backward_reference(q.detach(), k.detach(), v.detach(), g)
+    for t, r in zip((q, k, v), ref):
+        torch.testing.assert_close(t.grad, r, **BWD_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,h,T,d", [(4096, 3, 8, 16), (20, 3, 8, 16), (7, 2, 8, 16),
+                                     (5, 1, 4, 8), (33, 2, 16, 24), (11, 3, 32, 128),
+                                     (9, 5, 2, 64), (3, 2, 8, 6)])
+def test_fused_window_attention_kernels_match_reference_on_card(cuda_device, N, h, T, d):
+    """K2's forward and backward against their plain versions: f32 and bf16,
+    on [N, h, T, d] transposed views of the path's layouts (and dense ones),
+    pair counts that are not multiples of 128 / T, and feature widths that
+    rule out 16-byte loads (d = 6)."""
+    for dt in (torch.float32, torch.bfloat16):
+        for name, qkv in _layouts(cuda_device, dt, N, T, h, d, N + T).items():
+            q, k, v = (t.transpose(1, 2) for t in qkv)
+            got = fused_window_attention(q, k, v)
+            torch.cuda.synchronize()
+            ref = fused_window_attention_reference(q, k, v)
+            assert got.shape == (N, h, T, d) and got.dtype == dt
+            assert got.transpose(1, 2).is_contiguous()
+            assert (got.float() - ref.float()).abs().max().item() <= ATOL[dt], name
+            g = torch.randn(q.shape, device=cuda_device).to(dt)
+            grads = fused_window_attention_backward(q, k, v, g)
+            torch.cuda.synchronize()
+            for a, b in zip(grads, fused_window_attention_backward_reference(q, k, v, g)):
+                torch.testing.assert_close(a.float(), b.float(), **BWD_TOL[dt],
+                                           msg=f"{name} {dt}")
+
+
+@pytest.mark.cuda
+def test_fused_window_attention_autograd_raises_and_counts_on_card(cuda_device):
+    q = torch.randn(40, 3, 8, 16, device=cuda_device, requires_grad=True)
+    before = dict(LAUNCHES)
+    out = fused_window_attention(q, q * 0.5, q * 2.0)
+    out.sum().backward()
+    fused_window_attention_reference(q, q, q)
+    assert LAUNCHES["fused_window_attention"] == before["fused_window_attention"] + 1
+    assert (LAUNCHES["fused_window_attention_backward"]
+            == before["fused_window_attention_backward"] + 1)
+    assert LAUNCHES["window_attention"] == before["window_attention"]
+    for T, d in [(12, 16), (64, 16), (8, 160)]:                # 128 % T, T, d
+        x = torch.zeros(4, 2, T, d, device=cuda_device)
+        with pytest.raises(ValueError):
+            fused_window_attention(x, x, x)
+    x = torch.zeros(4, 2, 8, 16, device=cuda_device)
+    with pytest.raises(ValueError):
+        fused_window_attention(x.half(), x.half(), x.half())
+    with pytest.raises(ValueError):
+        fused_window_attention(x.transpose(2, 3), x.transpose(2, 3), x.transpose(2, 3))
+
+
+@pytest.mark.cuda
+def test_dw_conv3_refuses_autograd_on_card(cuda_device):
+    x = torch.randn(1, 4, 6, 6, 6, device=cuda_device)
+    w = torch.randn(4, 1, 3, 3, 3, device=cuda_device, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="MedNeXt training"):
+        dw_conv3(x, w)
+    with torch.no_grad():
+        dw_conv3(x, w)

@@ -48,7 +48,7 @@ def test_serve_answers_npy_requests_on_cpu(tmp_path):
         np.testing.assert_array_equal(seg, logits.argmax(dim=1)[0].numpy())
         done = json.loads((out / f"{name}.done").read_text())
         assert done["request"] == name and done["latency_s"] > 0
-        assert done["launches"] == {"window_attention": 0, "dw_conv3": 0}
+        assert done["launches"] == {k: 0 for k in LAUNCHES}
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -58,7 +58,8 @@ def test_port_imports_no_jax_and_no_jax_package():
         "for m in pkgutil.walk_packages(micformer_tpu_torch.__path__, 'micformer_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke, profile_torch_forward\n"
-        "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'micformer_tpu')]\n"
+        "bad = [n for n in sys.modules if n.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'sklearn', 'micformer_tpu')]\n"
         "print(sorted(n for n in sys.modules if n.startswith('micformer_tpu_torch')))\n"
         "print('BAD', sorted(bad))\n"
     )
@@ -66,6 +67,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     lines = res.stdout.strip().splitlines()
-    for name in ("cli.serve", "models.mednext", "kernels.dw_conv3"):
+    for name in ("cli.serve", "models.mednext", "kernels.dw_conv3", "cli.train",
+                 "train.trainer", "data.transforms", "kernels.fused_window_attention"):
         assert f"micformer_tpu_torch.{name}" in lines[0], name
     assert lines[-1] == "BAD []", lines[-1]
