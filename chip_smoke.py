@@ -17,23 +17,35 @@ Phases; any error in any of them fails the run (non-zero exit, no result line):
                forward and backward, on the [N, h, T, d] views of the same
                layouts and at its contract's corners (T 4-32, d 8-128, tails);
                K3 depthwise k³ conv at MedNeXt-S's five stage shapes and two
-               ragged ones, with the bias the path adds.
+               ragged ones, with the bias the path adds; K3's backward at
+               MedNeXt-S's five training stage shapes (b2, 128³) and the two
+               ragged ones: dx (K3 on the flipped weight) and dw, db (the
+               weight-gradient kernel) against the plain version, with
+               cuDNN's conv3d_input / conv3d_weight and F.conv3d forward and
+               backward as the library times.
   4. slice   - per model, full width with seeded random weights, f32 with TF32
                off, on one 1x2x64³ input: the card (kernels) against the CPU
                (plain versions). MicFormer: embed 48, depths 2-2-6-2, heads
                3-6-12-24. MedNeXt-S: kernel 3, 32 channels, 2 blocks a stage.
                Then MicFormer's training step there (mdice loss on a seeded
                one-hot label, backward) with fused attention off and on,
-               against one CPU reference: loss and every gradient leaf.
+               against one CPU reference: loss and every gradient leaf; and
+               MedNeXt-S's, once with mdice and once with dice_ce on its
+               deep-supervision pyramid, 36 K3 and 18 wgrad launches each.
   5. serve   - per model, the same weights in bf16 through the port's serve
                loop: one cold warm-up request, then three [2, 160³] requests,
                roi 128, overlap 0.5, gaussian, sw_batch 4. Launch counts and
                peak memory are reset just before the three and read just after.
   6. train   - cli/train.main at full width in bf16 on a synthetic MM-WHS root
-               (six cases preprocessed to 128³: four train, one validation):
-               two epochs with validation, then --resume for a third, then one
-               epoch with --fused-attention. Launch counts and peak memory are
-               reset just before each run and read just after.
+               (six cases preprocessed to 128³: four train, one validation).
+               MicFormer: two epochs with validation, then --resume for a
+               third, then one epoch with --fused-attention. MedNeXt-S:
+               --cfg configs/mednext_s_mmwhs.yaml (batch 2) for two epochs
+               with validation, --resume for a third, then three epochs of
+               the nnU-Net preset (deep supervision, dice_ce, the nnunet
+               augmentation, SGD-Nesterov, clipping 12); every step 36 K3 and
+               18 wgrad launches. Launch counts and peak memory are reset just
+               before each run and read just after.
   7. lines   - a {"kernels": [...]} line, then the {"ok": true, ...} line last.
 """
 
@@ -85,6 +97,11 @@ KERNELS = {
         "source": "micformer_tpu_torch/csrc/dw_conv3.cu",
         "replaces": "micformer_tpu/ops/pallas/dw_stencil.py:80",
     },
+    "dw_conv3_wgrad": {
+        "route": "cuda",
+        "source": "micformer_tpu_torch/csrc/dw_conv3_wgrad.cu",
+        "replaces": "micformer_tpu/ops/pallas/dw_stencil.py:97",
+    },
 }
 # (N, T, h, d): stages 0-3 of a 128³ forward at sw_batch 4, then two ragged cases
 ATTN_SHAPES = [(16384, 8, 3, 16), (2048, 8, 6, 16), (256, 8, 12, 16),
@@ -104,6 +121,15 @@ DW_SHAPES = [((4, 32, 128, 128, 128), 3), ((4, 64, 64, 64, 64), 3),
 # outputs up to about 10
 DW_TOL = {torch.float32: dict(rtol=0.0, atol=1e-4),
           torch.bfloat16: dict(rtol=1e-2, atol=2e-2)}
+# ([B, C, D, H, W], k): MedNeXt-S's stride-1 depthwise convs in a b2 128³
+# training step (stages 0-3 and the bottleneck), then DW_SHAPES' ragged cases
+DW_TRAIN_SHAPES = [((2, 32, 128, 128, 128), 3), ((2, 64, 64, 64, 64), 3),
+                   ((2, 128, 32, 32, 32), 3), ((2, 256, 16, 16, 16), 3),
+                   ((2, 512, 8, 8, 8), 3)] + DW_SHAPES[5:]
+# dw and db: sums of up to 8.4 M exact f32 products in another order (f32),
+# then one rounding to bf16 (bf16)
+DW_WGRAD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-3),
+                torch.bfloat16: dict(rtol=1e-2, atol=2e-2)}
 # (N, T, h, d): MicFormer's attention at the four stages of a b1 128³
 # training step (window 2³, head dim 16)
 TRAIN_SHAPES = [(4096, 8, 3, 16), (512, 8, 6, 16), (64, 8, 12, 16), (8, 8, 24, 16)]
@@ -128,9 +154,12 @@ PATHS = {
                   "request": expect(window_attention=192)},
     "mednext": {"slice": expect(dw_conv3=18), "request": expect(dw_conv3=36)},
 }
-# the training path: launches per MicFormer training step (forward, backward)
+# the training paths: launches per MicFormer training step (forward, backward)
+# with fused attention off and on, and per MedNeXt-S step (18 K3 forwards,
+# 18 K3 launches for dx and 18 wgrad launches)
 TRAIN_STEP = {False: expect(window_attention=96, window_attention_backward=96),
-              True: expect(fused_window_attention=96, fused_window_attention_backward=96)}
+              True: expect(fused_window_attention=96, fused_window_attention_backward=96),
+              "mednext": expect(dw_conv3=36, dw_conv3_wgrad=18)}
 
 
 def log(msg):
@@ -345,6 +374,14 @@ def phase_fused_kernel():
     return fwd, bwd
 
 
+def dw_bound(nbytes, ops):
+    """(bound ms, by, bytes ms, ops ms) of a K3-family call: bytes at the
+    memory rate against f32 operations on the CUDA cores."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / CUDA_CORE_F32_OPS_PER_S
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            1e3 * t_bytes, 1e3 * t_ops)
+
+
 def phase_dw_kernel():
     from micformer_tpu_torch.kernels.dw_conv3 import dw_conv3, dw_conv3_reference
 
@@ -366,17 +403,14 @@ def phase_dw_kernel():
             raise AssertionError(f"dw_conv3 {[B, C, D, H, W]} k {k} {dt}: max err "
                                  f"{err} beyond {tol}")
         del got, ref
-        nbytes = (2 * x.numel() + w.numel() + C) * x.element_size()
-        ops = 2 * k ** 3 * x.numel()
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / CUDA_CORE_F32_OPS_PER_S
+        ms, by, b_ms, o_ms = dw_bound((2 * x.numel() + w.numel() + C) * x.element_size(),
+                                      2 * k ** 3 * x.numel())
         row = {"shape": [B, C, D, H, W], "k": k, "dtype": str(dt).replace("torch.", ""),
                "max_abs_err": err,
                "ms": time_ms(lambda: dw_conv3(x, w, b)),
                "plain_ms": time_ms(lambda: dw_conv3_reference(x, w, b), reps=5),
                "library_ms": time_ms(lambda: F.conv3d(x, w, b, padding=k // 2, groups=C)),
-               "bound_ms": 1e3 * max(t_bytes, t_ops), "bytes_bound_ms": 1e3 * t_bytes,
-               "ops_bound_ms": 1e3 * t_ops,
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+               "bound_ms": ms, "bytes_bound_ms": b_ms, "ops_bound_ms": o_ms, "bound_by": by}
         rows.append(row)
         log(f"kernel dw_conv3 {row['shape']} k {k} {row['dtype']}: err {err:.3g}, "
             f"kernel {1e3 * row['ms']:.2f} us, plain {1e3 * row['plain_ms']:.2f} us, "
@@ -385,6 +419,78 @@ def phase_dw_kernel():
             f"{1e3 * row['bytes_bound_ms']:.2f} us, ops {1e3 * row['ops_bound_ms']:.2f} us)")
         del x, w, b
     return rows
+
+
+def autograd_conv3d(x, w, g, k, C):
+    """F.conv3d forward and backward under autograd (dx and dw): the
+    library's whole depthwise training conv."""
+    torch.autograd.grad(F.conv3d(x, w, padding=k // 2, groups=C), (x, w), g)
+
+
+def phase_dw_backward_kernel():
+    """K3's backward at MedNeXt-S's training stage shapes and the ragged
+    ones: dx (K3 on the flipped weight) and dw, db (the weight-gradient
+    kernel), each row timed on its own against its plain version and
+    cuDNN's."""
+    from micformer_tpu_torch.kernels.dw_conv3 import (
+        dw_conv3, dw_conv3_backward, dw_conv3_backward_reference, dw_conv3_reference,
+        dw_conv3_wgrad, dw_conv3_wgrad_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    dx_rows, wgrad_rows = [], []
+    for ((B, C, D, H, W), k), dt in itertools.product(
+            DW_TRAIN_SHAPES, (torch.float32, torch.bfloat16)):
+        x, g = (torch.randn((B, C, D, H, W), generator=gen, device="cuda").to(dt)
+                for _ in range(2))
+        w = (torch.randn((C, 1, k, k, k), generator=gen, device="cuda") / k ** 1.5).to(dt)
+        got = dw_conv3_backward(x, w, g)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, r in zip(("dx", "dw", "db"), got, dw_conv3_backward_reference(x, w, g)):
+            tol = DW_TOL[dt] if name == "dx" else DW_WGRAD_TOL[dt]
+            errs[name] = (a.float() - r.float()).abs().max().item()
+            if not bool(((a.float() - r.float()).abs()
+                         <= tol["atol"] + tol["rtol"] * r.float().abs()).all()):
+                raise AssertionError(f"dw_conv3 backward {name} {[B, C, D, H, W]} k {k} {dt}: "
+                                     f"max err {errs[name]} beyond {tol}")
+        del got
+        wf = w.flip((2, 3, 4)).contiguous()
+        base = {"shape": [B, C, D, H, W], "k": k, "dtype": str(dt).replace("torch.", "")}
+        n, es = x.numel(), x.element_size()
+        lib = [t.detach().requires_grad_() for t in (x, w)]
+        autograd_ms = time_ms(lambda: autograd_conv3d(*lib, g, k, C), reps=5)
+        ms, by, b_ms, o_ms = dw_bound((2 * n + w.numel()) * es, 2 * k ** 3 * n)
+        with torch.no_grad():
+            dx_row = {**base, "max_abs_err": errs["dx"],
+                      "ms": time_ms(lambda: dw_conv3(g, wf)),
+                      "plain_ms": time_ms(lambda: dw_conv3_reference(g, wf), reps=5),
+                      "library_ms": time_ms(lambda: torch.nn.grad.conv3d_input(
+                          x.shape, w, g, padding=k // 2, groups=C)),
+                      "autograd_ms": autograd_ms, "bound_ms": ms, "bound_by": by,
+                      "bytes_bound_ms": b_ms, "ops_bound_ms": o_ms}
+            ms, by, b_ms, o_ms = dw_bound(2 * n * es + C * (k ** 3 + 1) * 4,
+                                          2 * k ** 3 * n + n)
+            wg_row = {**base, "max_abs_err": max(errs["dw"], errs["db"]),
+                      "dw_err": errs["dw"], "db_err": errs["db"],
+                      "ms": time_ms(lambda: dw_conv3_wgrad(x, g, k)),
+                      "plain_ms": time_ms(lambda: dw_conv3_wgrad_reference(x, g, k), reps=5),
+                      "library_ms": time_ms(lambda: torch.nn.grad.conv3d_weight(
+                          x, w.shape, g, padding=k // 2, groups=C)),
+                      "autograd_ms": autograd_ms, "bound_ms": ms, "bound_by": by,
+                      "bytes_bound_ms": b_ms, "ops_bound_ms": o_ms}
+        dx_rows.append(dx_row)
+        wgrad_rows.append(wg_row)
+        for name, r, lib_name in (("dw_conv3 dx", dx_row, "cudnn conv3d_input"),
+                                  ("dw_conv3_wgrad", wg_row, "cudnn conv3d_weight")):
+            log(f"kernel {name} {r['shape']} k {k} {r['dtype']}: err {r['max_abs_err']:.3g}, "
+                f"kernel {1e3 * r['ms']:.2f} us, plain {1e3 * r['plain_ms']:.2f} us, "
+                f"{lib_name} {1e3 * r['library_ms']:.2f} us, F.conv3d fwd+bwd "
+                f"{1e3 * autograd_ms:.2f} us, bound {1e3 * r['bound_ms']:.2f} us "
+                f"({r['bound_by']}; bytes {1e3 * r['bytes_bound_ms']:.2f} us, ops "
+                f"{1e3 * r['ops_bound_ms']:.2f} us)")
+        del x, g, w, wf, lib
+    return dx_rows, wgrad_rows
 
 
 def phase_slice(name, model_cpu):
@@ -469,10 +575,73 @@ def phase_train_slice(model_cpu):
     return res
 
 
+def phase_mednext_train_slice():
+    """One full-width MedNeXt-S training step's loss and gradients, f32 with
+    TF32 off, on the card against the CPU: mdice on the plain output, and
+    dice_ce through the deep-supervision pyramid."""
+    from micformer_tpu_torch import registry
+    from micformer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from micformer_tpu_torch.losses.dice import (
+        deep_supervision_loss, mdice_loss, one_hot, softmax_dice_ce_loss,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(1, 2, 64, 64, 64)).astype(np.float32))
+    y = one_hot(torch.from_numpy(rng.integers(0, 8, (1, 64, 64, 64))), 8)
+    losses = {"mdice": lambda out, t: mdice_loss(out, t),
+              "dice_ce_ds": lambda out, t: deep_supervision_loss(out, t, softmax_dice_ce_loss)}
+
+    def step(model, loss_fn, dev):
+        model.train()
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn(model(x.to(dev)), y.to(dev))
+        loss.backward()
+        return loss.item(), {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+    res = {}
+    for variant, loss_fn in losses.items():
+        model_cpu = registry.build("mednext", device="cpu", deep_supervision=variant != "mdice",
+                                   generator=torch.Generator().manual_seed(0))
+        ref_loss, ref_grads = step(model_cpu, loss_fn, "cpu")
+        model = copy.deepcopy(model_cpu).to("cuda")
+        reset_launches()
+        loss, grads = step(model, loss_fn, "cuda")
+        launches = dict(LAUNCHES)
+        top = max(g.abs().max().item() for g in ref_grads.values())
+        worst, bias_noise = 0.0, 0.0
+        for n, g in ref_grads.items():
+            if n.endswith("dw.bias"):
+                # an instance norm follows every depthwise conv: the exact
+                # gradient of its bias is zero, both sides hold rounding
+                bias_noise = max(bias_noise, grads[n].abs().max().item() / top,
+                                 g.abs().max().item() / top)
+                continue
+            worst = max(worst, (grads[n] - g).abs().max().item() / g.abs().max().item())
+        log(f"train slice: full-width mednext 1x2x64³ f32, {variant}: loss card {loss:.7f} "
+            f"cpu {ref_loss:.7f}, max over leaves of max|dg|/max|g_cpu| {worst:.3g}, "
+            f"depthwise biases (exactly 0) within {bias_noise:.3g} of the largest gradient, "
+            f"kernel launches {launches}")
+        if (not (abs(loss - ref_loss) <= 1e-5 and worst <= 1e-3 and bias_noise <= 1e-4)
+                or launches != TRAIN_STEP["mednext"]):
+            raise AssertionError(f"mednext train slice {variant}: loss {loss} vs {ref_loss}, "
+                                 f"grad err {worst} (limit 1e-3), bias noise {bias_noise} "
+                                 f"(limit 1e-4), launches {launches} "
+                                 f"(want {TRAIN_STEP['mednext']})")
+        res[variant] = {"loss": loss, "cpu_loss": ref_loss, "max_rel_grad_err": worst,
+                        "dw_bias_noise": bias_noise, "launches": launches}
+        del model, model_cpu
+    torch.backends.cudnn.allow_tf32 = True
+    return res
+
+
 def phase_train(work):
-    """cli/train.main on the card: two epochs, --resume for a third, then one
-    epoch with --fused-attention; every step's loss finite, every step's
-    launches as TRAIN_STEP says."""
+    """cli/train.main on the card. MicFormer: two epochs, --resume for a
+    third, then one epoch with --fused-attention. MedNeXt-S: the paper's
+    config for two epochs, --resume for a third, then three epochs of the
+    nnU-Net preset. Every step's loss finite, every step's launches as
+    TRAIN_STEP says."""
     from micformer_tpu_torch.cli import train
     from micformer_tpu_torch.data.synthetic import write_synthetic_dataset
     from micformer_tpu_torch.kernels import LAUNCHES, reset_launches
@@ -481,19 +650,35 @@ def phase_train(work):
     t0 = time.perf_counter()
     write_synthetic_dataset(data, n_cases=6, shape=(48, 48, 48), seed=0)
     log(f"train: synthetic MM-WHS root, 6 cases of 48³, {time.perf_counter() - t0:.2f} s")
-    common = ["--data", data, "--cache", os.path.join(work, "cache"), "--model", "micformer",
+    common = ["--data", data, "--cache", os.path.join(work, "cache"),
               "--target-shape", "128", "--bf16", "--val", "1", "--workers", "2"]
+    micformer = ["--model", "micformer"]
+    mednext = ["--cfg", os.path.join(ROOT, "configs", "mednext_s_mmwhs.yaml")]   # batch 2
+    nnunet = ["--model-kwargs", '{"deep_supervision": true}', "--deep-supervision",
+              "--loss", "dice_ce", "--augment", "nnunet", "--optimizer", "sgd_nesterov",
+              "--grad-clip", "12"]
+
+    def run_dir(name):
+        return ["--run-dir", os.path.join(work, name)]
+
+    # (name, arguments, TRAIN_STEP key, batch, (steps run, step reached))
+    plan = [("two epochs", micformer + ["--epochs", "2"] + run_dir("run"), False, 1, (8, 8)),
+            ("resume", micformer + ["--epochs", "3", "--resume"] + run_dir("run"), False, 1,
+             (4, 12)),
+            ("fused", micformer + ["--epochs", "1", "--fused-attention"] + run_dir("run_fused"),
+             True, 1, (4, 4)),
+            ("mednext two epochs", mednext + ["--epochs", "2"] + run_dir("run_mednext"),
+             "mednext", 2, (4, 4)),
+            ("mednext resume", mednext + ["--epochs", "3", "--resume"] + run_dir("run_mednext"),
+             "mednext", 2, (2, 6)),
+            ("mednext nnunet", mednext + nnunet + ["--epochs", "3"] + run_dir("run_nnunet"),
+             "mednext", 2, (6, 6))]
     runs = {}
-    for name, extra, fused in (
-            ("two epochs", ["--epochs", "2", "--run-dir", os.path.join(work, "run")], False),
-            ("resume", ["--epochs", "3", "--resume", "--run-dir", os.path.join(work, "run")],
-             False),
-            ("fused", ["--epochs", "1", "--fused-attention",
-                       "--run-dir", os.path.join(work, "run_fused")], True)):
+    for name, args, key, batch, want_steps in plan:
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         t0 = time.perf_counter()
-        trainer = train.main(common + extra)
+        trainer = train.main(common + args)
         wall = time.perf_counter() - t0
         launches = dict(LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
@@ -501,24 +686,27 @@ def phase_train(work):
         losses = [r["loss"] for r in hist]
         warm = [r["seconds"] for r in hist[1:]]
         res = {"steps": len(hist), "final_step": trainer.step, "losses": losses,
-               "first_step_s": hist[0]["seconds"] if hist else None,
+               "step_ms": [1e3 * r["seconds"] for r in hist],
+               "batch": batch, "first_step_s": hist[0]["seconds"] if hist else None,
                "warm_ms_per_step": 1e3 * statistics.mean(warm) if warm else None,
-               "warm_vol_per_s": len(warm) / sum(warm) if warm else None,
+               "warm_vol_per_s": batch * len(warm) / sum(warm) if warm else None,
                "max_memory_allocated": peak, "launches": launches, "wall_s": wall,
                "launches_per_step": hist[0]["launches"] if hist else None}
         runs[name] = res
-        log(f"train {name}: {len(hist)} steps (to step {trainer.step}) in {wall:.2f} s, first "
-            f"step {res['first_step_s']:.3f} s, warm {res['warm_ms_per_step']:.2f} ms/step, "
-            f"{res['warm_vol_per_s']:.3f} vol/s, peak {peak / 2 ** 30:.2f} GiB, losses "
-            f"{losses}, launches {launches}, per step {res['launches_per_step']}")
-        want_steps = {"two epochs": (8, 8), "resume": (4, 12), "fused": (4, 4)}[name]
+        log(f"train {name}: {len(hist)} steps of batch {batch} (to step {trainer.step}) in "
+            f"{wall:.2f} s, first step {res['first_step_s']:.3f} s, warm "
+            f"{res['warm_ms_per_step']:.2f} ms/step, {res['warm_vol_per_s']:.3f} vol/s, peak "
+            f"{peak / 2 ** 30:.2f} GiB, step ms {res['step_ms']}, losses {losses}, launches "
+            f"{launches}, per step "
+            f"{res['launches_per_step']}")
+        want = TRAIN_STEP[key]
         if ((len(hist), trainer.step) != want_steps
                 or not all(np.isfinite(v) and not r["skipped"] for v, r in zip(losses, hist))
-                or any(r["launches"] != TRAIN_STEP[fused] for r in hist)
-                or any(launches[k] < n * len(hist) for k, n in TRAIN_STEP[fused].items())):
+                or any(r["launches"] != want for r in hist)
+                or any(launches[k] < n * len(hist) for k, n in want.items())):
             raise AssertionError(f"train {name}: steps {len(hist)} to {trainer.step} (want "
                                  f"{want_steps}), losses {losses}, launches per step "
-                                 f"{[r['launches'] for r in hist]} (want {TRAIN_STEP[fused]})")
+                                 f"{[r['launches'] for r in hist]} (want {want})")
         del trainer
         torch.cuda.empty_cache()
     return runs
@@ -592,6 +780,7 @@ def main():
     attn_bwd = phase_attention_backward_kernel()
     fused_fwd, fused_bwd = phase_fused_kernel()
     dw = phase_dw_kernel()
+    _, wgrad = phase_dw_backward_kernel()       # dx rows: printed
     from micformer_tpu_torch import registry
 
     work = os.path.join(ROOT, ".chip_smoke_work")
@@ -607,6 +796,8 @@ def main():
             phase_slice(name, model_cpu)
             if name == "micformer":
                 phase_train_slice(model_cpu)
+            else:
+                phase_mednext_train_slice()
             serve[name] = phase_serve(name, model_cpu, work)
             del model_cpu
         train = phase_train(work)
@@ -616,9 +807,10 @@ def main():
     # each kernel's line times its path's stage-0 call in bf16, q/k/v in the
     # layout of the path's self attention (sliced from the fused qkv
     # projection): K1 at serving's [16384, 8, 3, 16], its backward and K2 at
-    # training's [4096, 8, 3, 16]; K3 on MedNeXt-S's [4, 32, 128³]. Launches
-    # are each path's: K1 and K3 from the serve phase's three volumes, the
-    # backwards and K2 from the train phase's runs that use them
+    # training's [4096, 8, 3, 16]; K3 on MedNeXt-S's [4, 32, 128³], the wgrad
+    # kernel on its training [2, 32, 128³]. Launches are each path's: K1 and
+    # K3 from the serve phase's three volumes, the backwards and K2 from the
+    # train phase's runs that use them, wgrad from the three MedNeXt runs
     def stage0(rows, shape):
         return next(r for r in rows if r["shape"] == list(shape)
                     and r.get("layout", "self") == "self" and r["dtype"] == "bfloat16")
@@ -633,7 +825,10 @@ def main():
               train["fused"]["launches"]),
              ("fused_window_attention_backward", stage0(fused_bwd, (n0, h0, t0_, d0)),
               fused_bwd, train["fused"]["launches"]),
-             ("dw_conv3", stage0(dw, DW_SHAPES[0][0]), dw, serve["mednext"]["launches"])]
+             ("dw_conv3", stage0(dw, DW_SHAPES[0][0]), dw, serve["mednext"]["launches"]),
+             ("dw_conv3_wgrad", stage0(wgrad, DW_TRAIN_SHAPES[0][0]), wgrad,
+              {"dw_conv3_wgrad": sum(r["launches"]["dw_conv3_wgrad"] for n, r in train.items()
+                                     if n.startswith("mednext"))})]
     kernels = [{"name": name, **KERNELS[name], "launches": launches[name],
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 **{k: row[k] for k in timed + ("layout", "k") if k in row}}

@@ -2,10 +2,16 @@
 
     python -m micformer_tpu_torch.cli.train --data <root> --model micformer \
         --target-shape 128 --bf16 [--fused-attention] [--device cpu]
+    python -m micformer_tpu_torch.cli.train --data <root> \
+        --cfg configs/mednext_s_mmwhs.yaml --target-shape 128 --bf16
+    python -m micformer_tpu_torch.cli.train --data <root> --model mednext \
+        --model-kwargs '{"deep_supervision": true}' --deep-supervision \
+        --loss dice_ce --augment nnunet --optimizer sgd_nesterov --grad-clip 12
 
-Counterpart of `micformer_tpu/cli/train.py` for the MicFormer training
-slice: the 5-fold MM-WHS split under --data (preprocessed to --target-shape
-and cached under --cache), batches from the thread-worker loader, the
+Counterpart of `micformer_tpu/cli/train.py` for the MicFormer and MedNeXt
+training slices (the last line above is MedNeXt's nnU-Net preset): the
+5-fold MM-WHS split under --data (preprocessed to --target-shape and cached
+under --cache), batches from the thread-worker loader, the
 `Trainer` with latest / best checkpoints in --run-dir, and `--resume`.
 Runs on the card unless --device cpu is given, and raises when CUDA is
 asked for and missing. `--throughput` times training steps instead (two
@@ -59,14 +65,17 @@ def main(argv=None):
         seed=cfg.train.seed, scheduler=cfg.train.scheduler,
         scheduler_per_batch=cfg.train.scheduler_per_batch,
         steps_per_epoch=len(train_loader), optimizer=cfg.train.optimizer,
+        loss=cfg.train.extra_loss, deep_supervision=bool(cfg.train.deep_supervision),
         grad_clip_norm=cfg.train.grad_clip_norm, patience=cfg.train.patience,
         run_dir=cfg.train.run_dir, augment=cfg.train.augment,
         roi=tuple(cfg.infer.roi), sw_overlap=cfg.infer.overlap,
         sw_batch_size=cfg.infer.sw_batch_size, bf16=bool(cfg.train.bf16))
     trainer = Trainer(model, tcfg)
     print(f"train: {cfg.model.name} on {device}, {len(train_ds)} training and "
-          f"{len(val_ds)} validation cases at {tuple(cfg.data.target_shape)}, "
-          f"{'bf16' if tcfg.bf16 else 'f32'}, fused attention "
+          f"{len(val_ds)} validation cases at {tuple(cfg.data.target_shape)}, batch "
+          f"{cfg.train.batch_size}, {'bf16' if tcfg.bf16 else 'f32'}, {tcfg.loss} loss"
+          f"{' on the deep-supervision pyramid' if tcfg.deep_supervision else ''}, "
+          f"{tcfg.augment} augmentation, {tcfg.optimizer}, fused attention "
           f"{cfg.model.fused_attention}", flush=True)
 
     if args.throughput:

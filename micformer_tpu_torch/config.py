@@ -1,7 +1,7 @@
 """Config: one dataclass tree, YAML loading and command-line overrides.
 
 Counterpart of `micformer_tpu/config.py`, restricted to the flags the
-training slice reads, plus `--fused-attention` (the JAX package's
+training slices read, plus `--fused-attention` (the JAX package's
 MICFORMER_FUSED_ATTENTION=1), `--device` and `--model-kwargs`. Every flag
 defaults to None, so only a flag that is given overrides the YAML preset.
 YAML needs PyYAML, imported only when a --cfg file is given; the resolved
@@ -54,6 +54,8 @@ class TrainerConfig:
     bf16: bool = False
     patience: int | None = None
     augment: str = "monai"
+    extra_loss: str = "mdice"           # the train loss, as the JAX config names it
+    deep_supervision: bool = False
 
 
 @dataclass
@@ -143,8 +145,15 @@ def build_argparser(defaults: Config | None = None) -> argparse.ArgumentParser:
     p.add_argument("--scheduler-per-batch", default=None, choices=["true", "false"],
                    help="step the schedule per batch (the reference's quirk, the "
                         "default) or per epoch")
-    p.add_argument("--augment", default=None, choices=["monai", "none"],
-                   help="train-time transform stack (default monai)")
+    p.add_argument("--augment", default=None, choices=["monai", "nnunet", "none"],
+                   help="train-time transform stack (default monai; nnunet is "
+                        "MedNeXt's native moreDA-style stack)")
+    p.add_argument("--loss", default=None, choices=["mdice", "dice_ce"],
+                   help="train loss (default mdice; dice_ce is nnU-Net's softmax "
+                        "Dice + cross-entropy)")
+    p.add_argument("--deep-supervision", action="store_true", default=None,
+                   help="train on the model's output pyramid (the model must "
+                        "return one: --model-kwargs '{\"deep_supervision\": true}')")
     p.add_argument("--patience", type=int, default=None,
                    help="stop after N validations without improvement")
     p.add_argument("--grad-clip", type=float, default=None)
@@ -174,6 +183,8 @@ _ARG_MAP = {
     "optimizer": ("train", "optimizer"),
     "scheduler": ("train", "scheduler"),
     "augment": ("train", "augment"),
+    "loss": ("train", "extra_loss"),
+    "deep_supervision": ("train", "deep_supervision"),
     "grad_clip": ("train", "grad_clip_norm"),
     "patience": ("train", "patience"),
 }

@@ -8,7 +8,8 @@ from __future__ import annotations
 
 LAUNCHES: dict[str, int] = {"window_attention": 0, "window_attention_backward": 0,
                              "fused_window_attention": 0,
-                             "fused_window_attention_backward": 0, "dw_conv3": 0}
+                             "fused_window_attention_backward": 0, "dw_conv3": 0,
+                             "dw_conv3_wgrad": 0}
 
 
 def reset_launches() -> None:

@@ -220,22 +220,26 @@ class DepthwiseConv3D(nn.Conv3d):
 
     def forward(self, x):
         p, s = self.kernel_size[0] // 2, self.stride[0]
+        # the parameters in x's dtype, as the JAX layer's w.astype(dtype): a
+        # no-op when they already match, and under autocast over f32
+        # parameters the cast's backward hands them f32 gradients
+        w = self.weight.to(x.dtype)
+        b = self.bias.to(x.dtype)
         if self.transpose2:
             # conv_transpose3d at padding p-1 with the flipped kernel yields
             # dilate-and-pad (p+1, p) plus one extra plane per axis; keep 2L
             D, H, W = x.shape[2:]
-            y = F.conv_transpose3d(x, self.weight.flip((2, 3, 4)), self.bias,
-                                   stride=2, padding=p - 1, groups=self.groups)
+            y = F.conv_transpose3d(x, w.flip((2, 3, 4)), b, stride=2, padding=p - 1,
+                                   groups=self.groups)
             return y[:, :, :2 * D, :2 * H, :2 * W]
         if s == 1 and self.pad in (None, ((p, p),) * 3):
             # a tensor with size-1 axes can come out of F.pad channels-last;
             # on the serving path x is already contiguous and this is free
-            return dw_conv3(x.contiguous(), self.weight, self.bias)
+            return dw_conv3(x.contiguous(), w, b)
         if self.pad is None:
-            return F.conv3d(x, self.weight, self.bias, s, p, groups=self.groups)
+            return F.conv3d(x, w, b, s, p, groups=self.groups)
         (dl, dh), (hl, hh), (wl, wh) = self.pad
-        return F.conv3d(F.pad(x, (wl, wh, hl, hh, dl, dh)), self.weight, self.bias,
-                        s, groups=self.groups)
+        return F.conv3d(F.pad(x, (wl, wh, hl, hh, dl, dh)), w, b, s, groups=self.groups)
 
 
 class PointwiseConv(nn.Conv3d):
@@ -268,8 +272,11 @@ class PointwiseTranspose2(PointwiseConv):
     def forward(self, x):
         B, C, D, H, W = x.shape
         Fo = self.out_channels
-        out = self.bias.view(1, Fo, 1, 1, 1).expand(B, Fo, 2 * D, 2 * H, 2 * W).clone()
-        out[:, :, 1::2, 1::2, 1::2] = self.gemm(x)
+        y = self.gemm(x)
+        # in the GEMM's dtype (bf16 under autocast), not the bias's
+        out = self.bias.to(y.dtype).view(1, Fo, 1, 1, 1).expand(
+            B, Fo, 2 * D, 2 * H, 2 * W).clone()
+        out[:, :, 1::2, 1::2, 1::2] = y
         return out
 
 

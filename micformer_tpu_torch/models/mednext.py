@@ -120,7 +120,10 @@ class MedNeXt(nn.Module):
             for i in range(1, 5):
                 self.add_module(f"ds{i}", PointwiseConv(n * 2 ** i, num_classes))
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
+        """`generator` is accepted so a trainer calls every model alike;
+        MedNeXt has no stochastic layer (the JAX `deterministic` argument is
+        unused too)."""
         bc = self.block_counts
         x = self.stem(x.to(self.out.weight.dtype))
         skips = []
@@ -146,8 +149,10 @@ class MedNeXt(nn.Module):
 
 @registry.register("mednext", num_classes=8, size="S", kernel=3, deep_supervision=False)
 def build_mednext(num_classes=8, size="S", kernel=3, deep_supervision=False,
-                  faithful_up=False):
+                  faithful_up=False, n_channels=32):
+    """`n_channels` (the stem width, 32 in every published size) narrows
+    the model for small runs on the CPU."""
     cfg = _SIZES[size]
-    return MedNeXt(num_classes=num_classes, kernel=kernel,
+    return MedNeXt(num_classes=num_classes, n_channels=n_channels, kernel=kernel,
                    exp_r=cfg["exp_r"], block_counts=cfg["block_counts"],
                    deep_supervision=deep_supervision, faithful_up=faithful_up)

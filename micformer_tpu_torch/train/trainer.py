@@ -1,15 +1,19 @@
 """The training and validation harness.
 
 Counterpart of `micformer_tpu/train/trainer.py`, restricted to what the
-MicFormer training slice runs:
+MicFormer and MedNeXt training slices run:
   - Adam (AdamW when weight decay is set), AdamW or SGD with Nesterov
     momentum 0.99, each followed by the schedule (cosine stepped per batch
     with T_max = epochs, the reference's quirk, or per epoch; poly;
     constant) as a LambdaLR multiplier, and optional clipping by global norm
     before the optimizer;
-  - the mdice train loss and, in validation, mdice_val_loss, meandice and the
-    per-class hard Dice, through a direct forward when the volume equals the
-    roi and sliding-window inference otherwise;
+  - the mdice or dice_ce (softmax Dice + CE) train loss, through the
+    deep-supervision wrapper when it is set and the model returns its
+    pyramid (else the pyramid's full-resolution output); in validation
+    mdice_val_loss, meandice and the per-class hard Dice of the
+    full-resolution output, through a direct forward when the volume equals
+    the roi and sliding-window inference otherwise;
+  - the `monai`, `nnunet` or no train-time augmentation;
   - the NaN guard: a non-finite loss skips the update, so parameters,
     optimizer state and the step count stay as they were, and
     max_consecutive_nan skips in a row halt the run;
@@ -33,13 +37,23 @@ import torch
 
 from micformer_tpu_torch.kernels import LAUNCHES
 from micformer_tpu_torch.losses.dice import (
-    hard_dice_metric, mdice_loss, mdice_val_loss, one_hot,
+    deep_supervision_loss, hard_dice_metric, mdice_loss, mdice_val_loss, one_hot,
+    softmax_dice_ce_loss,
 )
 from micformer_tpu_torch.losses.metrics import meandice
 from micformer_tpu_torch.train.checkpoint import CheckpointManager
 from micformer_tpu_torch.train.logging import MetricsWriter, save_metrics
 from micformer_tpu_torch.train.meters import AverageMeter, ProgressMeter, Timer
 from micformer_tpu_torch.train.schedules import cosine_annealing, poly_lr
+
+
+LOSSES = {"mdice": mdice_loss, "dice_ce": softmax_dice_ce_loss}
+
+
+def full_resolution(out):
+    """The full-resolution logits of a model's output: the first of a
+    deep-supervision pyramid, or the output itself."""
+    return out[0] if isinstance(out, (list, tuple)) else out
 
 
 @dataclasses.dataclass
@@ -54,12 +68,13 @@ class TrainConfig:
     scheduler_per_batch: bool = True    # the reference's quirk
     steps_per_epoch: int = 16
     optimizer: str = "adam"             # adam | adamw | sgd_nesterov
-    loss: str = "mdice"
+    loss: str = "mdice"                 # mdice | dice_ce (nnU-Net preset)
+    deep_supervision: bool = False
     grad_clip_norm: float | None = None
     nan_guard: bool = True
     max_consecutive_nan: int = 50
     run_dir: str = "runs/default"
-    augment: str = "monai"              # monai | none
+    augment: str = "monai"              # monai | nnunet | none
     # intensity transforms touch only the first num_modalities channels
     num_modalities: int | None = None
     # validation tiles a volume whose shape differs from roi
@@ -73,20 +88,20 @@ class TrainConfig:
     val_metric_alpha: float = 0.9
     bf16: bool = False
     # fields of the JAX trainer that are not ported yet: setting one raises
-    deep_supervision: bool = False
     pretrained: str | None = None
     zero1: bool = False
     mesh: str | None = None
 
     def __post_init__(self):
-        for name in ("deep_supervision", "pretrained", "zero1", "mesh"):
+        for name in ("pretrained", "zero1", "mesh"):
             if getattr(self, name):
                 raise NotImplementedError(f"TrainConfig.{name} is not ported yet")
-        if self.loss != "mdice":
-            raise NotImplementedError(f"loss {self.loss!r} is not ported yet (mdice only)")
-        if self.augment not in ("monai", "none"):
-            raise NotImplementedError(f"augment {self.augment!r} is not ported yet "
-                                      "(monai, none)")
+        if self.loss not in LOSSES:
+            raise NotImplementedError(
+                f"loss {self.loss!r} is not ported yet: {sorted(LOSSES)} are; the rest "
+                "of the JAX loss zoo (gdl, topk, focal, mcc, dice_topk, dice_bce) is not")
+        if self.augment not in ("monai", "nnunet", "none"):
+            raise ValueError(f"unknown augment {self.augment!r}")
         if self.optimizer not in ("adam", "adamw", "sgd_nesterov"):
             raise ValueError(f"unknown optimizer {self.optimizer!r}")
         if self.scheduler not in ("cosine", "poly", "constant"):
@@ -173,7 +188,21 @@ class Trainer:
 
             return batched_train_augment(self.generator, images, labels,
                                          self.cfg.num_modalities)
+        if self.cfg.augment == "nnunet":
+            from micformer_tpu_torch.data.transforms import batched_nnunet_train_augment
+
+            return batched_nnunet_train_augment(self.generator, images, labels,
+                                                self.cfg.num_modalities)
         return images, labels
+
+    def loss(self, out, labels):
+        """The train loss of a model output: with deep supervision set and a
+        pyramid given, the weighted sum over it; otherwise the loss of the
+        full-resolution logits."""
+        fn = LOSSES[self.cfg.loss]
+        if self.cfg.deep_supervision and isinstance(out, (list, tuple)):
+            return deep_supervision_loss(list(out), labels, loss_fn=fn)
+        return fn(full_resolution(out), labels)
 
     def _val_transform(self, images):
         if self.cfg.augment == "monai":
@@ -193,7 +222,7 @@ class Trainer:
         images, labels = self._augment(images, labels)
         self.optimizer.zero_grad(set_to_none=True)
         with self._autocast():
-            loss = mdice_loss(self.model(images, generator=self.generator), labels)
+            loss = self.loss(self.model(images, generator=self.generator), labels)
         loss.backward()
         value = loss.item()
         skipped = cfg.nan_guard and not math.isfinite(value)
@@ -326,10 +355,11 @@ class Trainer:
             with self._autocast():
                 if cfg.roi is not None and tuple(images.shape[2:]) != tuple(cfg.roi):
                     logits = sliding_window_inference(
-                        images, cfg.roi, self.model, num_classes=cfg.num_classes,
-                        overlap=cfg.sw_overlap, sw_batch_size=cfg.sw_batch_size)
+                        images, cfg.roi, lambda x: full_resolution(self.model(x)),
+                        num_classes=cfg.num_classes, overlap=cfg.sw_overlap,
+                        sw_batch_size=cfg.sw_batch_size)
                 else:
-                    logits = self.model(images)
+                    logits = full_resolution(self.model(images))
             m = self.eval_metrics(logits, labels)
             losses.append(m["val_loss"])
             dices.append(m["meandice"])

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card:
 window attention (K1) and its backward, the fused window attention (K2) and
-its backward, and the depthwise k³ conv (K3).
+its backward, and the depthwise k³ conv (K3) and its backward (dx through
+K3, dw and db through the weight-gradient kernel).
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only the port's dependencies:
@@ -10,12 +11,16 @@ that has only the port's dependencies:
 Without a card its tests skip.
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
 
 from micformer_tpu_torch.kernels import LAUNCHES
-from micformer_tpu_torch.kernels.dw_conv3 import dw_conv3, dw_conv3_reference
+from micformer_tpu_torch.kernels.dw_conv3 import (
+    dw_conv3, dw_conv3_backward, dw_conv3_backward_reference, dw_conv3_reference,
+)
 from micformer_tpu_torch.kernels.fused_window_attention import (
     fused_window_attention, fused_window_attention_backward,
     fused_window_attention_backward_reference, fused_window_attention_reference,
@@ -253,11 +258,91 @@ def test_fused_window_attention_autograd_raises_and_counts_on_card(cuda_device):
         fused_window_attention(x.transpose(2, 3), x.transpose(2, 3), x.transpose(2, 3))
 
 
+# dx as DW_TOL (K3 itself); dw and db: sums of up to 10^5 exact f32 products
+# in another order (f32), rounded once to bf16 (bf16)
+DW_BWD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-3),
+              torch.bfloat16: dict(rtol=1e-2, atol=2e-2)}
+
+
 @pytest.mark.cuda
-def test_dw_conv3_refuses_autograd_on_card(cuda_device):
-    x = torch.randn(1, 4, 6, 6, 6, device=cuda_device)
-    w = torch.randn(4, 1, 3, 3, 3, device=cuda_device, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="MedNeXt training"):
-        dw_conv3(x, w)
+@pytest.mark.parametrize("shape,k,offset", [
+    ((2, 32, 32, 32, 32), 3, 0),        # MedNeXt-S's stage-0 channels at 32³
+    ((2, 512, 8, 8, 8), 3, 0),          # the bottleneck's shape
+    ((2, 7, 19, 37, 45), 3, 0),         # ragged: no axis a multiple of the tile
+    ((1, 5, 13, 9, 70), 5, 0),
+    ((2, 3, 6, 5, 7), 5, 0),            # fewer W columns than halo threads
+    ((1, 6, 5, 7, 12), 3, 1),           # x and g one element off 16-byte alignment
+])
+def test_dw_conv3_backward_kernels_match_reference_on_card(cuda_device, shape, k, offset):
+    """dx (K3 on the flipped weight), dw and db (the weight-gradient kernel)
+    against the plain version, f32 and bf16, each one K3 and one wgrad launch."""
+    rng = np.random.default_rng(sum(shape) + k)
+    arrays = [rng.normal(size=shape), rng.normal(size=(shape[1], 1, k, k, k)) / k ** 1.5,
+              rng.normal(size=shape)]
+    for dt in (torch.float32, torch.bfloat16):
+        x, w, g = (torch.from_numpy(a.astype(np.float32)).to(cuda_device, dt) for a in arrays)
+        if offset:
+            x, g = (torch.empty(t.numel() + offset, dtype=dt, device=cuda_device)[offset:]
+                    .view(shape).copy_(t) for t in (x, g))
+        before = dict(LAUNCHES)
+        got = dw_conv3_backward(x, w, g)
+        torch.cuda.synchronize()
+        assert LAUNCHES["dw_conv3"] == before["dw_conv3"] + 1
+        assert LAUNCHES["dw_conv3_wgrad"] == before["dw_conv3_wgrad"] + 1
+        for name, a, b in zip(("dx", "dw", "db"), got, dw_conv3_backward_reference(x, w, g)):
+            assert a.dtype == dt and a.shape == b.shape, name
+            tol = DW_TOL[dt] if name == "dx" else DW_BWD_TOL[dt]
+            torch.testing.assert_close(a.float(), b.float(), **tol, msg=f"{name} {dt}")
+
+
+@pytest.mark.cuda
+def test_dw_conv3_autograd_raises_and_counts_on_card(cuda_device):
+    """dw_conv3 under autograd: K3 forward, then K3 for dx and one wgrad
+    launch for dw and db; strided layouts are refused; no launch for the
+    plain versions or for what autograd does not ask for."""
+    rng = np.random.default_rng(4)
+    x, g = (torch.from_numpy(rng.normal(size=(2, 4, 6, 7, 9)).astype(np.float32))
+            .to(cuda_device) for _ in range(2))
+    w = torch.from_numpy(rng.normal(size=(4, 1, 3, 3, 3)).astype(np.float32) / 5).to(cuda_device)
+    b = torch.from_numpy(rng.normal(size=4).astype(np.float32)).to(cuda_device)
+    xl, wl, bl = (t.clone().requires_grad_() for t in (x, w, b))
+    before = dict(LAUNCHES)
+    dw_conv3(xl, wl, bl).backward(g)
+    assert LAUNCHES["dw_conv3"] == before["dw_conv3"] + 2
+    assert LAUNCHES["dw_conv3_wgrad"] == before["dw_conv3_wgrad"] + 1
+    dx, dw, db = dw_conv3_backward_reference(x, w, g)
+    for t, r in ((xl, dx), (wl, dw), (bl, db)):
+        torch.testing.assert_close(t.grad, r, **DW_BWD_TOL[torch.float32])
+    # only the weight asks for a gradient: no dx launch
+    before = dict(LAUNCHES)
+    dw_conv3(x, wl).backward(g)
+    assert LAUNCHES["dw_conv3"] == before["dw_conv3"] + 1
+    assert LAUNCHES["dw_conv3_wgrad"] == before["dw_conv3_wgrad"] + 1
+    with pytest.raises(ValueError):
+        dw_conv3_backward(x.transpose(3, 4), w, g.transpose(3, 4))
+    with pytest.raises(ValueError):
+        dw_conv3_backward(x, w, g.transpose(3, 4).contiguous().transpose(3, 4))
+    with pytest.raises(ValueError):
+        dw_conv3_backward(x, w, g.bfloat16())
+    with pytest.raises(ValueError):
+        dw_conv3(xl.transpose(3, 4), wl)
+    before = dict(LAUNCHES)
+    dw_conv3_backward_reference(x, w, g)
     with torch.no_grad():
-        dw_conv3(x, w)
+        dw_conv3(x, wl)                                       # serving: forward only
+    assert LAUNCHES["dw_conv3"] == before["dw_conv3"] + 1
+    assert LAUNCHES["dw_conv3_wgrad"] == before["dw_conv3_wgrad"]
+
+
+@pytest.mark.cuda
+def test_dw_conv3_gradcheck_on_card(cuda_device):
+    """Finite differences of the Function at a tiny f32 shape: the conv is
+    linear in each argument, so central differences at eps 1e-2 are exact
+    up to f32 rounding of outputs near 1."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn(1, 2, 4, 5, 6, generator=gen, device=cuda_device).requires_grad_()
+    w = (torch.randn(2, 1, 3, 3, 3, generator=gen, device=cuda_device) / 5).requires_grad_()
+    b = torch.randn(2, generator=gen, device=cuda_device).requires_grad_()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")             # gradcheck prefers f64; K3 takes f32
+        assert torch.autograd.gradcheck(dw_conv3, (x, w, b), eps=1e-2, atol=5e-3, rtol=1e-2)

@@ -68,6 +68,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert res.returncode == 0, res.stderr
     lines = res.stdout.strip().splitlines()
     for name in ("cli.serve", "models.mednext", "kernels.dw_conv3", "cli.train",
-                 "train.trainer", "data.transforms", "kernels.fused_window_attention"):
+                 "train.trainer", "data.transforms", "kernels.fused_window_attention",
+                 "losses.dice"):
         assert f"micformer_tpu_torch.{name}" in lines[0], name
     assert lines[-1] == "BAD []", lines[-1]

@@ -172,7 +172,7 @@ def test_nan_guard_halts_after_max_consecutive(tmp_path):
 
 def test_unported_config_fields_raise():
     for kw in ({"zero1": True}, {"mesh": "data=4"}, {"pretrained": "runs/x"},
-               {"deep_supervision": True}, {"loss": "dice_ce"}, {"augment": "nnunet"}):
+               {"loss": "gdl"}):
         with pytest.raises(NotImplementedError):
             TrainConfig(**kw)
 
