@@ -6,7 +6,10 @@
 Phases; any error in any of them fails the run (non-zero exit, no result line):
   1. device  - CUDA must be available; prints nvidia-smi's name and power limit.
   2. build   - nvcc builds every kernel source of the serving and training
-               paths from csrc/, one nvcc per source, all started together.
+               paths from csrc/, one nvcc per source, all started together;
+               then, per kernel function, cuobjdump's SASS of its main loop
+               (the backward branch that holds the most FFMAs): instructions
+               and FFMAs.
   3. kernels - each kernel against its plain PyTorch version on the card at its
                paths' shapes, f32 and bf16, with kernel, plain-version,
                library-call and bound times:
@@ -17,12 +20,15 @@ Phases; any error in any of them fails the run (non-zero exit, no result line):
                forward and backward, on the [N, h, T, d] views of the same
                layouts and at its contract's corners (T 4-32, d 8-128, tails);
                K3 depthwise k³ conv at MedNeXt-S's five stage shapes and two
-               ragged ones, with the bias the path adds; K3's backward at
+               ragged ones, with the bias the path adds (each row names the
+               staging route `_dw_route` chose: tma at 128³-32³, volume at
+               16³ and 8³, cp_async on the ragged rows); K3's backward at
                MedNeXt-S's five training stage shapes (b2, 128³) and the two
                ragged ones: dx (K3 on the flipped weight) and dw, db (the
                weight-gradient kernel) against the plain version, with
                cuDNN's conv3d_input / conv3d_weight and F.conv3d forward and
-               backward as the library times.
+               backward as the library times; then each of the three summed
+               over one MedNeXt-S pass (18 launches at the stage shapes).
   4. slice   - per model, full width with seeded random weights, f32 with TF32
                off, on one 1x2x64³ input: the card (kernels) against the CPU
                (plain versions). MicFormer: embed 48, depths 2-2-6-2, heads
@@ -34,8 +40,9 @@ Phases; any error in any of them fails the run (non-zero exit, no result line):
                deep-supervision pyramid, 36 K3 and 18 wgrad launches each.
   5. serve   - per model, the same weights in bf16 through the port's serve
                loop: one cold warm-up request, then three [2, 160³] requests,
-               roi 128, overlap 0.5, gaussian, sw_batch 4. Launch counts and
-               peak memory are reset just before the three and read just after.
+               roi 128, overlap 0.5, gaussian, sw_batch 4. Launch counts, K3's
+               staging routes (tma and volume only) and peak memory are reset
+               just before the three and read just after.
   6. train   - cli/train.main at full width in bf16 on a synthetic MM-WHS root
                (six cases preprocessed to 128³: four train, one validation).
                MicFormer: two epochs with validation, then --resume for a
@@ -44,8 +51,9 @@ Phases; any error in any of them fails the run (non-zero exit, no result line):
                with validation, --resume for a third, then three epochs of
                the nnU-Net preset (deep supervision, dice_ce, the nnunet
                augmentation, SGD-Nesterov, clipping 12); every step 36 K3 and
-               18 wgrad launches. Launch counts and peak memory are reset just
-               before each run and read just after.
+               18 wgrad launches, on the tma and volume routes only. Launch
+               counts, routes and peak memory are reset just before each run
+               and read just after.
   7. lines   - a {"kernels": [...]} line, then the {"ok": true, ...} line last.
 """
 
@@ -53,9 +61,11 @@ from __future__ import annotations
 
 import concurrent.futures
 import copy
+import glob
 import itertools
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -126,6 +136,9 @@ DW_TOL = {torch.float32: dict(rtol=0.0, atol=1e-4),
 DW_TRAIN_SHAPES = [((2, 32, 128, 128, 128), 3), ((2, 64, 64, 64, 64), 3),
                    ((2, 128, 32, 32, 32), 3), ((2, 256, 16, 16, 16), 3),
                    ((2, 512, 8, 8, 8), 3)] + DW_SHAPES[5:]
+# stride-1 depthwise convs of one MedNeXt-S pass at stages 0-3 (2 encoder
+# and 2 decoder blocks each) and the bottleneck (2 blocks): 18 in all
+DW_STAGE_LAUNCHES = [4, 4, 4, 4, 2]
 # dw and db: sums of up to 8.4 M exact f32 products in another order (f32),
 # then one rounding to bf16 (bf16)
 DW_WGRAD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-3),
@@ -164,6 +177,17 @@ TRAIN_STEP = {False: expect(window_attention=96, window_attention_backward=96),
 
 def log(msg):
     print(msg, flush=True)
+
+
+def path_routes(routes):
+    """The staging routes a run used, per depthwise kernel."""
+    return {name: sorted(r for r, n in counts.items() if n > 0)
+            for name, counts in routes.items()}
+
+
+# a path at roi 128 (or 64) runs the depthwise kernels on the tma route down
+# to 32³ and the volume route at 16³ and 8³, never on cp_async
+PATH_ROUTES = ["tma", "volume"]
 
 
 def time_ms(fn, reps=20):
@@ -208,6 +232,70 @@ def phase_build():
     for name, r in results.items():
         log(f"build: {name} {r['seconds']:.2f} s\n{r['log'].strip()}")
     log(f"build: all kernels in {time.perf_counter() - t0:.2f} s")
+    sass_report([_build._target(name)[1] for name in sources])
+
+
+_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*?);")
+_SASS_BRA = re.compile(r"\bBRA\b.*?(0x[0-9a-f]+|\.L_x_\d+)")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+
+
+def sass_report(libs):
+    """Per kernel function of each library: SASS instructions and FFMAs of
+    its main loop (the backward branch whose range holds the most FFMAs),
+    the loop's most frequent opcodes, and the whole function's counts, from
+    cuobjdump -sass. Prints one line a function; a missing cuobjdump is
+    reported, not an error."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    if not os.path.exists(tool):
+        log("sass: cuobjdump not found")
+        return
+    for lib in libs:
+        text = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                              timeout=300).stdout
+        funcs = re.split(r"\n\s*Function : (\S+)", text)
+        names = funcs[1::2]
+        if os.path.exists(filt) and names:
+            names = subprocess.run([filt], input="\n".join(names), capture_output=True,
+                                   text=True, timeout=60).stdout.split("\n")
+        for name, body in zip(names, funcs[2::2]):
+            insns, labels, pending = [], {}, []
+            for line in body.splitlines():
+                m = _SASS_LABEL.match(line)
+                if m:
+                    pending.append(m.group(1))
+                    continue
+                m = _SASS_INSN.search(line)
+                if m:
+                    addr = int(m.group(1), 16)
+                    for lab in pending:
+                        labels[lab] = addr
+                    pending = []
+                    insns.append((addr, m.group(3), m.group(4)))
+            best = None
+            for addr, op, rest in insns:
+                m = _SASS_BRA.search(op + rest) if op.startswith("BRA") else None
+                if not m:
+                    continue
+                tgt = m.group(1)
+                tgt = int(tgt, 16) if tgt.startswith("0x") else labels.get(tgt, addr + 1)
+                if tgt >= addr:
+                    continue
+                body_ops = [o.split(".")[0] for a, o, _ in insns if tgt <= a <= addr]
+                ffma = body_ops.count("FFMA")
+                if best is None or ffma > best[1]:
+                    best = (len(body_ops), ffma, body_ops)
+            total = len(insns)
+            ffma_all = sum(o.startswith("FFMA") for _, o, _ in insns)
+            loop = "no loop"
+            if best:
+                top = sorted(set(best[2]), key=best[2].count, reverse=True)[:8]
+                loop = (f"loop {best[0]} instructions, {best[1]} FFMA "
+                        f"({100.0 * best[1] / max(best[0], 1):.1f} %) ["
+                        + " ".join(f"{o} {best[2].count(o)}" for o in top) + "]")
+            log(f"sass: {os.path.basename(lib)} {name.strip()}: {loop}; function {total} "
+                f"instructions, {ffma_all} FFMA")
 
 
 def attn_inputs(gen, layout, N, T, h, d, dt):
@@ -383,7 +471,7 @@ def dw_bound(nbytes, ops):
 
 
 def phase_dw_kernel():
-    from micformer_tpu_torch.kernels.dw_conv3 import dw_conv3, dw_conv3_reference
+    from micformer_tpu_torch.kernels.dw_conv3 import _dw_route, dw_conv3, dw_conv3_reference
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
@@ -406,19 +494,34 @@ def phase_dw_kernel():
         ms, by, b_ms, o_ms = dw_bound((2 * x.numel() + w.numel() + C) * x.element_size(),
                                       2 * k ** 3 * x.numel())
         row = {"shape": [B, C, D, H, W], "k": k, "dtype": str(dt).replace("torch.", ""),
-               "max_abs_err": err,
+               "route": _dw_route(x.shape, dt, k, x.data_ptr()), "max_abs_err": err,
                "ms": time_ms(lambda: dw_conv3(x, w, b)),
                "plain_ms": time_ms(lambda: dw_conv3_reference(x, w, b), reps=5),
                "library_ms": time_ms(lambda: F.conv3d(x, w, b, padding=k // 2, groups=C)),
                "bound_ms": ms, "bytes_bound_ms": b_ms, "ops_bound_ms": o_ms, "bound_by": by}
         rows.append(row)
-        log(f"kernel dw_conv3 {row['shape']} k {k} {row['dtype']}: err {err:.3g}, "
+        log(f"kernel dw_conv3 {row['shape']} k {k} {row['dtype']} {row['route']}: err {err:.3g}, "
             f"kernel {1e3 * row['ms']:.2f} us, plain {1e3 * row['plain_ms']:.2f} us, "
             f"cudnn {1e3 * row['library_ms']:.2f} us, bound "
             f"{1e3 * row['bound_ms']:.2f} us ({row['bound_by']}; bytes "
             f"{1e3 * row['bytes_bound_ms']:.2f} us, ops {1e3 * row['ops_bound_ms']:.2f} us)")
         del x, w, b
     return rows
+
+
+def dw_pass_sums(name, rows, shapes):
+    """Kernel, library and bound time of one MedNeXt-S pass of a K3-family
+    kernel: each stage shape's row times its launches (DW_STAGE_LAUNCHES)."""
+    sums = {}
+    for dt in ("float32", "bfloat16"):
+        sel = [next(r for r in rows if r["shape"] == list(shape) and r["dtype"] == dt)
+               for shape, _ in shapes[:len(DW_STAGE_LAUNCHES)]]
+        sums[dt] = {key: sum(n * r[key] for n, r in zip(DW_STAGE_LAUNCHES, sel))
+                    for key in ("ms", "library_ms", "bound_ms")}
+        log(f"pass sum {name} {dt}: kernel {1e3 * sums[dt]['ms']:.1f} us, library "
+            f"{1e3 * sums[dt]['library_ms']:.1f} us, bound {1e3 * sums[dt]['bound_ms']:.1f} us "
+            f"({sum(DW_STAGE_LAUNCHES)} launches)")
+    return sums
 
 
 def autograd_conv3d(x, w, g, k, C):
@@ -433,8 +536,8 @@ def phase_dw_backward_kernel():
     kernel), each row timed on its own against its plain version and
     cuDNN's."""
     from micformer_tpu_torch.kernels.dw_conv3 import (
-        dw_conv3, dw_conv3_backward, dw_conv3_backward_reference, dw_conv3_reference,
-        dw_conv3_wgrad, dw_conv3_wgrad_reference,
+        _dw_route, dw_conv3, dw_conv3_backward, dw_conv3_backward_reference,
+        dw_conv3_reference, dw_conv3_wgrad, dw_conv3_wgrad_reference,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -458,11 +561,13 @@ def phase_dw_backward_kernel():
         wf = w.flip((2, 3, 4)).contiguous()
         base = {"shape": [B, C, D, H, W], "k": k, "dtype": str(dt).replace("torch.", "")}
         n, es = x.numel(), x.element_size()
+        dx_route = _dw_route(g.shape, dt, k, g.data_ptr())
+        wg_route = _dw_route(x.shape, dt, k, x.data_ptr(), g.data_ptr())
         lib = [t.detach().requires_grad_() for t in (x, w)]
         autograd_ms = time_ms(lambda: autograd_conv3d(*lib, g, k, C), reps=5)
         ms, by, b_ms, o_ms = dw_bound((2 * n + w.numel()) * es, 2 * k ** 3 * n)
         with torch.no_grad():
-            dx_row = {**base, "max_abs_err": errs["dx"],
+            dx_row = {**base, "route": dx_route, "max_abs_err": errs["dx"],
                       "ms": time_ms(lambda: dw_conv3(g, wf)),
                       "plain_ms": time_ms(lambda: dw_conv3_reference(g, wf), reps=5),
                       "library_ms": time_ms(lambda: torch.nn.grad.conv3d_input(
@@ -471,7 +576,7 @@ def phase_dw_backward_kernel():
                       "bytes_bound_ms": b_ms, "ops_bound_ms": o_ms}
             ms, by, b_ms, o_ms = dw_bound(2 * n * es + C * (k ** 3 + 1) * 4,
                                           2 * k ** 3 * n + n)
-            wg_row = {**base, "max_abs_err": max(errs["dw"], errs["db"]),
+            wg_row = {**base, "route": wg_route, "max_abs_err": max(errs["dw"], errs["db"]),
                       "dw_err": errs["dw"], "db_err": errs["db"],
                       "ms": time_ms(lambda: dw_conv3_wgrad(x, g, k)),
                       "plain_ms": time_ms(lambda: dw_conv3_wgrad_reference(x, g, k), reps=5),
@@ -483,7 +588,8 @@ def phase_dw_backward_kernel():
         wgrad_rows.append(wg_row)
         for name, r, lib_name in (("dw_conv3 dx", dx_row, "cudnn conv3d_input"),
                                   ("dw_conv3_wgrad", wg_row, "cudnn conv3d_weight")):
-            log(f"kernel {name} {r['shape']} k {k} {r['dtype']}: err {r['max_abs_err']:.3g}, "
+            log(f"kernel {name} {r['shape']} k {k} {r['dtype']} {r['route']}: err "
+                f"{r['max_abs_err']:.3g}, "
                 f"kernel {1e3 * r['ms']:.2f} us, plain {1e3 * r['plain_ms']:.2f} us, "
                 f"{lib_name} {1e3 * r['library_ms']:.2f} us, F.conv3d fwd+bwd "
                 f"{1e3 * autograd_ms:.2f} us, bound {1e3 * r['bound_ms']:.2f} us "
@@ -645,6 +751,7 @@ def phase_train(work):
     from micformer_tpu_torch.cli import train
     from micformer_tpu_torch.data.synthetic import write_synthetic_dataset
     from micformer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from micformer_tpu_torch.kernels.dw_conv3 import ROUTES, reset_routes
 
     data = os.path.join(work, "mmwhs")
     t0 = time.perf_counter()
@@ -677,10 +784,13 @@ def phase_train(work):
     for name, args, key, batch, want_steps in plan:
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
+        reset_routes()
         t0 = time.perf_counter()
         trainer = train.main(common + args)
         wall = time.perf_counter() - t0
         launches = dict(LAUNCHES)
+        routes = path_routes(ROUTES)
+        want_routes = PATH_ROUTES if key == "mednext" else []
         peak = torch.cuda.max_memory_allocated()
         hist = trainer.history
         losses = [r["loss"] for r in hist]
@@ -691,15 +801,18 @@ def phase_train(work):
                "warm_ms_per_step": 1e3 * statistics.mean(warm) if warm else None,
                "warm_vol_per_s": batch * len(warm) / sum(warm) if warm else None,
                "max_memory_allocated": peak, "launches": launches, "wall_s": wall,
-               "launches_per_step": hist[0]["launches"] if hist else None}
+               "launches_per_step": hist[0]["launches"] if hist else None, "routes": routes}
         runs[name] = res
         log(f"train {name}: {len(hist)} steps of batch {batch} (to step {trainer.step}) in "
             f"{wall:.2f} s, first step {res['first_step_s']:.3f} s, warm "
             f"{res['warm_ms_per_step']:.2f} ms/step, {res['warm_vol_per_s']:.3f} vol/s, peak "
             f"{peak / 2 ** 30:.2f} GiB, step ms {res['step_ms']}, losses {losses}, launches "
             f"{launches}, per step "
-            f"{res['launches_per_step']}")
+            f"{res['launches_per_step']}, depthwise routes {routes}")
         want = TRAIN_STEP[key]
+        if routes != {"dw_conv3": want_routes, "dw_conv3_wgrad": want_routes}:
+            raise AssertionError(f"train {name}: depthwise routes {routes} (want "
+                                 f"{want_routes} for both kernels)")
         if ((len(hist), trainer.step) != want_steps
                 or not all(np.isfinite(v) and not r["skipped"] for v, r in zip(losses, hist))
                 or any(r["launches"] != want for r in hist)
@@ -716,6 +829,7 @@ def phase_serve(name, model_cpu, work):
     from micformer_tpu_torch.cli import serve
     from micformer_tpu_torch.data.nifti import read_nifti
     from micformer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from micformer_tpu_torch.kernels.dw_conv3 import ROUTES, reset_routes
 
     weights = os.path.join(work, f"{name}_bf16.pt")
     torch.save({k: v.bfloat16() for k, v in model_cpu.state_dict().items()}, weights)
@@ -743,10 +857,13 @@ def phase_serve(name, model_cpu, work):
     names = [f"vol{i}" for i in range(3)]
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    reset_routes()
     t0 = time.perf_counter()
     lat, out = serve_dir("in", names)
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
+    routes = path_routes(ROUTES)
+    want_routes = {"dw_conv3": PATH_ROUTES if name == "mednext" else [], "dw_conv3_wgrad": []}
     peak = torch.cuda.max_memory_allocated()
 
     per_request = []
@@ -761,15 +878,16 @@ def phase_serve(name, model_cpu, work):
            "latency_s": lat, "p50_s": statistics.median(lat),
            "vol_per_s": len(lat) / sum(lat), "wall_s": wall,
            "max_memory_allocated": peak, "launches": launches,
-           "launches_per_request": per_request}
+           "launches_per_request": per_request, "routes": routes}
     log(f"serve: {name} {len(lat)} warm volumes 2x160³ bf16 roi 128 sw_batch 4: p50 "
         f"{res['p50_s']:.4f} s, {res['vol_per_s']:.3f} vol/s, latencies {lat}, "
         f"cold first request {cold:.4f} s, peak {peak / 2 ** 30:.2f} GiB, "
-        f"launches {launches}, per request {per_request}")
+        f"launches {launches}, per request {per_request}, depthwise routes {routes}")
     if (len(lat) != 3 or per_request != [want] * 3
-            or launches != {k: 3 * n for k, n in want.items()}):
+            or launches != {k: 3 * n for k, n in want.items()} or routes != want_routes):
         raise AssertionError(f"serve {name}: {len(lat)} requests, launches {launches}, "
-                             f"per request {per_request} (want 3 requests of {want})")
+                             f"per request {per_request} (want 3 requests of {want}), "
+                             f"depthwise routes {routes} (want {want_routes})")
     return res
 
 
@@ -780,7 +898,10 @@ def main():
     attn_bwd = phase_attention_backward_kernel()
     fused_fwd, fused_bwd = phase_fused_kernel()
     dw = phase_dw_kernel()
-    _, wgrad = phase_dw_backward_kernel()       # dx rows: printed
+    dx, wgrad = phase_dw_backward_kernel()
+    dw_pass_sums("dw_conv3 (b4 forward)", dw, DW_SHAPES)
+    dw_pass_sums("dw_conv3 dx (b2 step)", dx, DW_TRAIN_SHAPES)
+    dw_pass_sums("dw_conv3_wgrad (b2 step)", wgrad, DW_TRAIN_SHAPES)
     from micformer_tpu_torch import registry
 
     work = os.path.join(ROOT, ".chip_smoke_work")

@@ -14,356 +14,416 @@
 // Out: f32 dw [C, k^3] (the Conv3d weight [C, 1, k, k, k] flattened) and f32
 // db [C], accumulated in f32.
 //
-// Bound: memory. Each call must read x and g once (2 * 2 bytes per voxel in
-// bf16); the k^3 multiply-adds per voxel run on CUDA cores (no channel
-// reduction for the tensor cores). At MedNeXt-S's stage 0 in a b2 training
-// step, [2, 32, 128^3] in bf16, on an NVIDIA H100 80GB HBM3 at its 700 W
-// limit (3.35 TB/s, 67 TFLOP/s f32 FMA): 537 MB take 160 us, 3.6 G FMA 108 us.
+// Bound at MedNeXt-S's stage 0 in a b2 training step, [2, 32, 128^3] in
+// bf16, on an NVIDIA H100 80GB HBM3 at its 700 W limit: x and g read once,
+// 537 MB at 3.35 TB/s = 160 us; 3.6 G FMA on the CUDA cores at 67 TFLOP/s
+// = 108 us. The first design (4 voxels a thread, 18 predicated scalar
+// loads and an f32 staging pass per plane for 108 FMAs) ran 1127 us in f32
+// and 1223 us in bf16: bound by instruction issue, not by memory.
 //
-// Why CUDA C++ and not Triton: this is a stencil, not a plain reduction. The
-// halo'd x plane is staged once in shared memory and read back as shifted
-// windows, and every thread keeps all k^3 + 1 sums in registers across the
-// whole D walk; Triton's block model has neither the shared-memory halo tile
-// nor an unrolled k^3 register accumulator.
-//
-// Design, simple and deterministic (no atomics, as the K1 backward):
-//   - one block per (G volumes of one or more channels, H x W tile, D chunk);
-//     a thread owns 4 W-adjacent voxels of one row and walks the chunk's
-//     g planes. While x plane z is consumed it holds the k g planes that
-//     plane z meets (z + p - dz for tap dz) in registers, so g is read from
-//     HBM once and needs no shared memory;
-//   - each x plane's tile plus its k/2 halo is staged once in shared memory
-//     (f32), double-buffered with the next plane loaded into registers
-//     during the compute, zero padding by predicate, as the forward does;
-//   - a row of the tile is read as two 16-byte loads and reused for the k
-//     dx taps of the 4 voxels and the k dz taps: k^3 * 4 FMAs per 2k loads;
-//   - at the end each block reduces its k^3 + 1 sums over the threads of
-//     each volume (warp shuffles, then shared memory across warps) and
-//     writes one partial per (volume, tile, chunk) into an f32 scratch;
-//     a second small launch sums the partials of each channel in a fixed
-//     order (batch, then tile and chunk), so dw is the same in every run;
-//   - D is cut into chunks until the grid has about four blocks per SM, so
-//     the narrow-C stages (32 channels at 128^3) still fill 132 SMs.
+// Design, deterministic (no atomics):
+//   - the "tma" and "cp_async" routes: one block per (volume, H x W tile, D
+//     chunk) walks the chunk's g planes. x planes are staged with their
+//     halo in a ring of 4 buffers in x's dtype, by TMA or cp.async, exactly
+//     as the forward stages them (csrc/dw_stage.cuh). Each thread owns VH
+//     rows x 8 W-adjacent voxels (VH 2 at k = 3, 1 at k = 5) and holds, in
+//     f32 registers, the k g planes that x plane z meets (z + p - dz for tap
+//     dz): g is read from HBM once, 16 bytes a load on the tma route, the
+//     next plane's load in flight during the current plane's FMAs. A staged
+//     x row is one 16-byte load plus the halo and feeds k^2 * 8 FMAs per g
+//     row. At k = 3 the D loop is unrolled by 3, so the g ring rotates by
+//     renaming registers.
+//   - the "volume" route (D, H, W <= 16): one TMA box brings G whole halo'd
+//     x volumes into shared memory; each thread takes cells (VH rows x 8
+//     voxels of one g plane) of its volume with no D walk.
+//   - every thread keeps all k^3 + 1 sums in f32 registers. At the end each
+//     block reduces them over the threads of each volume in f64 (warp
+//     shuffles, then shared memory across warps, in a fixed order) and
+//     writes one f64 partial per (volume, tile, chunk) into a scratch; a
+//     second small launch sums the partials of each channel in f64 in a
+//     fixed order (batch, then tile and chunk), so dw is the same in every
+//     run.
+//   - accuracy: a channel's dw sums up to 8.4 M products (stage 0), and the
+//     error of f32 sums grows with the length of each thread's chain of
+//     adds and with the levels above it. bf16 inputs round far coarser than
+//     that; for f32 the wrapper cuts the D chunk to 8 planes and each thread
+//     adds 8 products at a time (a row's 8 voxels) to its running sum, so
+//     the thread chains stay short, and the levels above them are f64.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <limits.h>
-#include <stdint.h>
+#include <string.h>
+
+#include "dw_stage.cuh"
 
 namespace {
 
-constexpr int kVW = 4;              // W-adjacent voxels per thread
-constexpr int kThreads = 256;       // threads per block, at most
-constexpr int kMaxBy = 64;          // thread rows per volume, at most
-constexpr int kMaxG = 64;           // volumes per block (blockDim.z limit)
-constexpr int kMaxDChunk = 32;      // g planes per block along D, at most
-constexpr int kMinDChunk = 4;       // ... and at least (where D allows)
-constexpr int kTargetBlocks = 4 * 132;
-constexpr int kMaxSmem = 48 * 1024;
+using namespace dwk;
 
 template <int K>
-struct Cfg {
-  static constexpr int P = K / 2;
-  static constexpr int K3 = K * K * K;
-  static constexpr int NACC = K3 + 1;             // k^3 taps and the bias sum
-  static constexpr int MAXR = 1 + 2 * P;          // staged rows per thread, at most
-  static constexpr int MAXC = kVW + 2 * P;        // staged cols per thread, at most
-  static_assert(kVW + 2 * P <= 8, "a thread reads 8 staged columns per row");
+struct WCfg {
+  static constexpr int NACC = Cfg<K>::K3 + 1;     // k^3 taps and the bias sum
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T zero();
-template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
-template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
-  return __float2bfloat16(0.f);
-}
-
-// 4 consecutive values from a 4-element-aligned address, as f32.
-__device__ __forceinline__ void load4(const float* src, float (&dst)[kVW]) {
-  const float4 v = *reinterpret_cast<const float4*>(src);
-  dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* src, float (&dst)[kVW]) {
-  union { uint2 u; __nv_bfloat162 h[2]; } pack;
-  pack.u = *reinterpret_cast<const uint2*>(src);
-  const float2 a = __bfloat1622float2(pack.h[0]), b = __bfloat1622float2(pack.h[1]);
-  dst[0] = a.x; dst[1] = a.y; dst[2] = b.x; dst[3] = b.y;
-}
-
-struct Plan {
-  int bx, by, G, h_tiles, w_tiles, d_chunk, n_chunks;
-  int64_t vol_groups;
-  size_t smem;
-};
-
-int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
-int pow2_ceil(int64_t v) {
-  int p = 1;
-  while (p < v) p <<= 1;
-  return p;
-}
-
-// The launch shape for n_vol volumes of D x H x W; the same for the scratch
-// query and the launch.
-template <int K>
-Plan make_plan(int64_t n_vol, int D, int H, int W) {
-  using Cf = Cfg<K>;
-  Plan pl;
-  // bx and by are powers of two, so the threads of one volume form aligned
-  // warp segments (or whole warps) for the shuffle reduction
-  pl.bx = pow2_ceil(ceil_div(W, kVW));
-  if (pl.bx > 32) pl.bx = 32;
-  pl.by = pow2_ceil(H);
-  if (pl.by > kThreads / pl.bx) pl.by = kThreads / pl.bx;
-  if (pl.by > kMaxBy) pl.by = kMaxBy;
-  const int S = pl.bx * pl.by;
-  pl.G = kThreads / S;
-  if (pl.G > kMaxG) pl.G = kMaxG;
-  if (pl.G > n_vol) pl.G = static_cast<int>(n_vol);
-  const int rows = pl.by + 2 * Cf::P, pitch = pl.bx * kVW + 8;
-  auto tile_bytes = [&](int g) {
-    return static_cast<size_t>(2) * g * rows * pitch * sizeof(float);
-  };
-  while (pl.G > 1 && tile_bytes(pl.G) > kMaxSmem) --pl.G;
-  // the cross-warp reduction reuses the tile's shared memory
-  const int warps = (S > 32 ? S / 32 : 1) * pl.G;
-  const size_t red_bytes = static_cast<size_t>(warps) * Cf::NACC * sizeof(float);
-  pl.smem = tile_bytes(pl.G) > red_bytes ? tile_bytes(pl.G) : red_bytes;
-  pl.h_tiles = static_cast<int>(ceil_div(H, pl.by));
-  pl.w_tiles = static_cast<int>(ceil_div(W, pl.bx * kVW));
-  pl.vol_groups = ceil_div(n_vol, pl.G);
-  const int64_t per_chunk = pl.vol_groups * pl.h_tiles * pl.w_tiles;
-  pl.d_chunk = D < kMaxDChunk ? D : kMaxDChunk;
-  const int floor_chunk = D < kMinDChunk ? D : kMinDChunk;
-  while (pl.d_chunk > floor_chunk && per_chunk * ceil_div(D, pl.d_chunk) < kTargetBlocks)
-    pl.d_chunk = static_cast<int>(ceil_div(pl.d_chunk, 2));
-  if (pl.d_chunk < floor_chunk) pl.d_chunk = floor_chunk;
-  pl.n_chunks = static_cast<int>(ceil_div(D, pl.d_chunk));
-  return pl;
-}
-
-template <typename T, int K>
-__global__ void __launch_bounds__(kThreads)
-dw_conv3_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                      float* __restrict__ part, int64_t n_vol, int D, int H, int W,
-                      int h_tiles, int w_tiles, int d_chunk, int n_chunks) {
-  using Cf = Cfg<K>;
-  constexpr int P = Cf::P, K3 = Cf::K3, NACC = Cf::NACC;
-  const int bx = blockDim.x, by = blockDim.y, G = blockDim.z;
-  const int tx = threadIdx.x, ty = threadIdx.y, tz = threadIdx.z;
-  const int TW = bx * kVW;
-  const int rows = by + 2 * P, cols = TW + 2 * P;   // staged tile with halo
-  const int pitch = TW + 8;                         // floats, 16-byte multiple
-  const int region = rows * pitch;                  // floats per (buffer, volume)
-
-  int64_t bid = blockIdx.x;
-  const int wt = static_cast<int>(bid % w_tiles);
-  bid /= w_tiles;
-  const int ht = static_cast<int>(bid % h_tiles);
-  bid /= h_tiles;
-  const int64_t vol = bid * G + tz;                 // (b, c) volume index
-  const bool vol_ok = vol < n_vol;
-  const int chunk = blockIdx.y;
-  const int d_begin = chunk * d_chunk;
-  const int d_end = min(D, d_begin + d_chunk);
-  const int h0 = ht * by, w0 = wt * TW;             // first row / col of the tile
-
-  extern __shared__ float4 smem4[];
-  float* const smem = reinterpret_cast<float*>(smem4);
-
-  const int64_t plane = static_cast<int64_t>(H) * W;
-  const T* const xv = x + (vol_ok ? vol : 0) * D * plane;
-  const T* const gv = g + (vol_ok ? vol : 0) * D * plane;
-  const int hh = h0 + ty, wbase = w0 + tx * kVW;
-  const bool g_vec = (W % kVW) == 0 &&
-                     (reinterpret_cast<uintptr_t>(g) % (kVW * sizeof(T))) == 0;
-
-  // this thread's 4 voxels of g plane d, zero outside the chunk and volume
-  auto load_g = [&](int d, float (&dst)[kVW]) {
-    const bool ok = vol_ok && d >= d_begin && d < d_end && hh < H;
-    const T* const src = gv + static_cast<int64_t>(ok ? d : 0) * plane +
-                         static_cast<int64_t>(ok ? hh : 0) * W + wbase;
-    if (ok && g_vec && wbase + kVW <= W) {
-      load4(src, dst);
+// Raw words of one g row segment of 8 voxels, loaded now and converted
+// later, so the load is in flight during the FMAs between.
+template <typename T>
+struct GRow {
+  static constexpr int NW = kVW * sizeof(T) / 4;
+  uint32_t wd[NW];
+  // vec: src is 16-byte aligned and every 16-byte group is whole or out of
+  // range (n is the count of valid voxels, from 0)
+  __device__ __forceinline__ void load(const T* src, int n, bool vec) {
+#pragma unroll
+    for (int i = 0; i < NW; ++i) wd[i] = 0u;
+    if (vec) {
+      constexpr int per16 = 16 / sizeof(T);
+#pragma unroll
+      for (int q = 0; q < NW / 4; ++q) {
+        if (q * per16 < n) {
+          const uint4 v = __ldg(reinterpret_cast<const uint4*>(src) + q);
+          wd[4 * q] = v.x; wd[4 * q + 1] = v.y; wd[4 * q + 2] = v.z; wd[4 * q + 3] = v.w;
+        }
+      }
     } else {
 #pragma unroll
-      for (int v = 0; v < kVW; ++v)
-        dst[v] = (ok && wbase + v < W) ? to_float(src[v]) : 0.f;
+      for (int v = 0; v < kVW; ++v) {
+        if (v < n) {
+          if constexpr (sizeof(T) == 4) {
+            wd[v] = __float_as_uint(__ldg(src + v));
+          } else {
+            const uint32_t h = __ldg(reinterpret_cast<const unsigned short*>(src) + v);
+            wd[v / 2] |= (v & 1) ? (h << 16) : h;
+          }
+        }
+      }
     }
-  };
+  }
+  __device__ __forceinline__ void to_float(float (&out)[kVW]) const {
+    words_to_float<T, NW>(wd, out);
+  }
+};
 
-  // Staged element (r, cc) of this volume's tile is x (h0-P+r, w0-P+cc);
-  // thread (tx, ty) stages r = ty + ri*by, cc = tx + ci*bx (coalesced in W).
-  T pre[Cf::MAXR][Cf::MAXC];
-  auto fetch = [&](int z) {
-    const bool z_ok = vol_ok && z >= 0 && z < D;
-    const T* const src = xv + static_cast<int64_t>(z_ok ? z : 0) * plane;
+// Sum acc in f64 over segments of `seg` threads (a power of two below 32,
+// or a multiple of 32) and write each segment's sums to dst_of(segment),
+// unless that is null; red is shared memory for (blockDim.x / 32) * NACC
+// doubles that no thread still reads. Every thread of the block calls it.
+template <int NACC, typename Dst>
+__device__ __forceinline__ void block_reduce(const float (&acc)[NACC], double* red, int seg,
+                                             Dst dst_of) {
+  const int tid = threadIdx.x + blockDim.x * threadIdx.y;
+  const int lanes = seg < 32 ? seg : 32;
+  // one sum at a time, so only one double is live
+  double* const dst_lane = seg <= 32 && tid % seg == 0 ? dst_of(tid / seg) : nullptr;
 #pragma unroll
-    for (int ri = 0; ri < Cf::MAXR; ++ri) {
-      const int r = ty + ri * by, xh = h0 - P + r;
+  for (int t = 0; t < NACC; ++t) {
+    double sum = acc[t];
+    for (int off = lanes / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (dst_lane != nullptr) dst_lane[t] = sum;
+    if (seg > 32 && (tid & 31) == 0) red[(tid / 32) * NACC + t] = sum;
+  }
+  if (seg <= 32) return;
+  __syncthreads();
+  const int nw = seg / 32, s = tid / seg, ts = tid % seg;
+  double* const dst = dst_of(s);
+  if (dst == nullptr) return;
+  for (int t = ts; t < NACC; t += seg) {
+    double total = 0.0;
+    for (int w = 0; w < nw; ++w) total += red[(s * nw + w) * NACC + t];
+    dst[t] = total;
+  }
+}
+
+template <typename T, int K, bool kTma>
+__global__ void __launch_bounds__(kThreads, Cfg<K>::MINB)
+dw_conv3_wgrad_tile_kernel(const __grid_constant__ CUtensorMap xmap, const T* __restrict__ x,
+                           const T* __restrict__ g, double* __restrict__ part, int D, int H,
+                           int W, int h_tiles, int w_tiles, int d_chunk, int n_chunks, int BW,
+                           int BH) {
+  using Cf = Cfg<K>;
+  constexpr int P = Cf::P, VH = Cf::VH, K3 = Cf::K3, NWIN = Cf::NWIN, NACC = WCfg<K>::NACC;
+  extern __shared__ unsigned char smem[];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  PlaneRing<T, K, kTma> ring;
+  ring.setup(smem, &xmap, x, D, H, W, h_tiles, w_tiles, d_chunk, BW, BH);
+  const int64_t vol = ring.vol;
+  const int d_begin = ring.d_begin, d_end = ring.d_end;
+
+  const int col0 = tx * kVW;
+  const int n_cols = min(max(W - (ring.w0 + col0), 0), kVW);
+  const bool g_vec = reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+                     (static_cast<int64_t>(W) * sizeof(T)) % 16 == 0;
+  const T* const gv = g + vol * D * static_cast<int64_t>(H) * W + ring.w0 + col0;
+  int n_rows[VH];
 #pragma unroll
-      for (int ci = 0; ci < Cf::MAXC; ++ci) {
-        const int cc = tx + ci * bx, xw = w0 - P + cc;
-        pre[ri][ci] = (z_ok && r < rows && cc < cols && xh >= 0 && xh < H &&
-                       xw >= 0 && xw < W)
-                          ? src[static_cast<int64_t>(xh) * W + xw]
-                          : zero<T>();
-      }
-    }
-  };
-  auto commit = [&](float* dst) {
+  for (int vh = 0; vh < VH; ++vh) n_rows[vh] = ring.h0 + ty * VH + vh < H ? n_cols : 0;
+
+  // this thread's g rows of plane j (zero outside the chunk)
+  GRow<T> raw[VH];
+  auto load_g = [&](int j) {
 #pragma unroll
-    for (int ri = 0; ri < Cf::MAXR; ++ri) {
-      const int r = ty + ri * by;
-#pragma unroll
-      for (int ci = 0; ci < Cf::MAXC; ++ci) {
-        const int cc = tx + ci * bx;
-        if (r < rows && cc < cols) dst[r * pitch + cc] = to_float(pre[ri][ci]);
-      }
+    for (int vh = 0; vh < VH; ++vh) {
+      const int hh = ring.h0 + ty * VH + vh;
+      const bool ok = j < d_end && n_rows[vh] > 0;
+      raw[vh].load(gv + (static_cast<int64_t>(ok ? j : 0) * H + (ok ? hh : 0)) * W,
+                   ok ? n_rows[vh] : 0, g_vec);
     }
   };
 
   float acc[NACC];
 #pragma unroll
   for (int t = 0; t < NACC; ++t) acc[t] = 0.f;
-  // gr[i] holds g plane z + P - i while x plane z is consumed: x plane z
-  // meets g plane z + P - dz through tap dz
-  float gr[K][kVW];
+  // x plane ordinal p (z = z_first + p) meets g plane d_begin + p - dz
+  // through tap dz. At k = 3 the D loop is unrolled by 3 and gs[(j -
+  // d_begin) % 3] holds g plane j, so the ring rotates by renaming; at
+  // k = 5, whose 5-fold unrolled body is too large to keep the ring in
+  // registers, gs[dz] holds plane d_begin + p - dz and the ring shifts by
+  // moves (40 a plane against 1000 FMAs).
+  constexpr int U = K == 3 ? K : 1;
+  float gs[K][VH][kVW];
 #pragma unroll
   for (int i = 0; i < K; ++i)
 #pragma unroll
-    for (int v = 0; v < kVW; ++v) gr[i][v] = 0.f;
+    for (int vh = 0; vh < VH; ++vh)
+#pragma unroll
+      for (int v = 0; v < kVW; ++v) gs[i][vh][v] = 0.f;
+  load_g(d_begin);
+#pragma unroll
+  for (int vh = 0; vh < VH; ++vh) {
+    raw[vh].to_float(gs[0][vh]);
+#pragma unroll
+    for (int v = 0; v < kVW; ++v) acc[K3] += gs[0][vh][v];
+  }
+  const int n = ring.n_planes;
 
-  const int z_first = d_begin - P, z_last = d_end - 1 + P;
-  fetch(z_first);
-  commit(smem + tz * region);
-  load_g(d_begin, gr[0]);
+  __syncthreads();                                  // barriers initialised
 #pragma unroll
-  for (int v = 0; v < kVW; ++v) acc[K3] += gr[0][v];
-  __syncthreads();
-  int cur = 0;
-  for (int z = z_first; z <= z_last; ++z) {
-    float gnext[kVW];
-    if (z < z_last) {                               // in flight during compute
-      fetch(z + 1);
-      load_g(z + 1 + P, gnext);
-    }
-    const float* const s = smem + (cur * G + tz) * region;
+  for (int q = 0; q < kStages - 1; ++q) {
+    if (q < n) ring.issue(q);
+    ring.commit();
+  }
+  for (int pb = 0; pb < n; pb += U) {
 #pragma unroll
-    for (int dy = 0; dy < K; ++dy) {
-      const float* const row = s + (ty + dy) * pitch + tx * kVW;
-      const float4 a = *reinterpret_cast<const float4*>(row);
-      const float4 b = *reinterpret_cast<const float4*>(row + 4);
-      const float win[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    for (int u = 0; u < U; ++u) {
+      const int p = pb + u;
+      if (p >= n) break;
+      const bool next_g = d_begin + p + 1 < d_end;
+      if (next_g) load_g(d_begin + p + 1);          // in flight during the FMAs
+      if (p + kStages - 1 < n) ring.issue(p + kStages - 1);
+      ring.commit();
+      ring.wait(p);
 #pragma unroll
-      for (int dz = 0; dz < K; ++dz) {
+      for (int r = 0; r < VH + K - 1; ++r) {
+        float win[NWIN];
+        ring.template read<NWIN>(p, ty * VH + r, col0, win);
 #pragma unroll
-        for (int dx = 0; dx < K; ++dx) {
-          float sum = acc[(dz * K + dy) * K + dx];
+        for (int vh = 0; vh < VH; ++vh) {
+          const int dy = r - vh;
+          if (dy < 0 || dy >= K) continue;
 #pragma unroll
-          for (int v = 0; v < kVW; ++v) sum = fmaf(gr[dz][v], win[v + dx], sum);
-          acc[(dz * K + dy) * K + dx] = sum;
+          for (int dz = 0; dz < K; ++dz) {
+            const int slot = U == K ? (u - dz + K) % K : dz;
+#pragma unroll
+            for (int dx = 0; dx < K; ++dx) {
+              float& sum = acc[(dz * K + dy) * K + dx];
+              if constexpr (sizeof(T) == 4) {       // 8 products, then one add
+                float row = gs[slot][vh][0] * win[dx];
+#pragma unroll
+                for (int v = 1; v < kVW; ++v) row = fmaf(gs[slot][vh][v], win[v + dx], row);
+                sum += row;
+              } else {
+#pragma unroll
+                for (int v = 0; v < kVW; ++v) sum = fmaf(gs[slot][vh][v], win[v + dx], sum);
+              }
+            }
+          }
+        }
+      }
+      __syncthreads();                              // buffer p % kStages is free
+      // g plane d_begin + p + 1 replaces d_begin + p + 1 - K
+      if (U != K) {
+#pragma unroll
+        for (int i = K - 1; i > 0; --i)
+#pragma unroll
+          for (int vh = 0; vh < VH; ++vh)
+#pragma unroll
+            for (int v = 0; v < kVW; ++v) gs[i][vh][v] = gs[i - 1][vh][v];
+      }
+      const int nxt = U == K ? (u + 1) % K : 0;
+#pragma unroll
+      for (int vh = 0; vh < VH; ++vh) {
+        if (next_g) {
+          raw[vh].to_float(gs[nxt][vh]);
+#pragma unroll
+          for (int v = 0; v < kVW; ++v) acc[K3] += gs[nxt][vh][v];
+        } else {
+#pragma unroll
+          for (int v = 0; v < kVW; ++v) gs[nxt][vh][v] = 0.f;
         }
       }
     }
-#pragma unroll
-    for (int i = K - 1; i > 0; --i)
-#pragma unroll
-      for (int v = 0; v < kVW; ++v) gr[i][v] = gr[i - 1][v];
-    if (z < z_last) {
-#pragma unroll
-      for (int v = 0; v < kVW; ++v) {
-        gr[0][v] = gnext[v];
-        acc[K3] += gnext[v];
-      }
-      commit(smem + ((cur ^ 1) * G + tz) * region);
-    }
-    __syncthreads();
-    cur ^= 1;
   }
 
-  // Reduce the sums over the S = bx*by threads of each volume (a power of
-  // two; the threads of volume tz are lanes tid_s = tx + bx*ty of one
-  // aligned warp segment, or S/32 whole warps).
-  const int S = bx * by;
-  const int tid_s = tx + bx * ty;
-  const int tid = tid_s + S * tz;
-  const int seg = S < 32 ? S : 32;
-  const int live = min(32, S * G - (tid & ~31));    // lanes of this warp that exist
-  const unsigned mask = live == 32 ? 0xffffffffu : ((1u << live) - 1u);
-#pragma unroll
-  for (int t = 0; t < NACC; ++t)
-    for (int off = seg / 2; off > 0; off >>= 1)
-      acc[t] += __shfl_xor_sync(mask, acc[t], off);
-
+  if constexpr (!kTma) cp_async_wait_all();
+  __syncthreads();                                  // the ring is free for the reduction
   const int64_t n_part = static_cast<int64_t>(h_tiles) * w_tiles * n_chunks;
-  const int64_t p_idx = (static_cast<int64_t>(ht) * w_tiles + wt) * n_chunks + chunk;
-  float* const dst = part + ((vol_ok ? vol : 0) * n_part + p_idx) * NACC;
-  if (S <= 32) {
-    if (tid_s == 0 && vol_ok) {
-#pragma unroll
-      for (int t = 0; t < NACC; ++t) dst[t] = acc[t];
-    }
-    return;
-  }
-  const int nw = S / 32;                            // warps of this volume
-  if ((tid_s & 31) == 0) {
-#pragma unroll
-    for (int t = 0; t < NACC; ++t) smem[(tz * nw + tid_s / 32) * NACC + t] = acc[t];
-  }
-  __syncthreads();
-  for (int t = tid_s; t < NACC; t += S) {
-    float sum = 0.f;
-    for (int w = 0; w < nw; ++w) sum += smem[(tz * nw + w) * NACC + t];
-    if (vol_ok) dst[t] = sum;
-  }
-}
-
-// dw[c, t] (t < k^3) and db[c] (t = k^3): the partials of channel c summed
-// over batch, then tile and chunk, in that fixed order.
-__global__ void dw_conv3_wgrad_reduce(const float* __restrict__ part,
-                                      float* __restrict__ dw, float* __restrict__ db,
-                                      int B, int C, int64_t n_part, int nacc) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= static_cast<int64_t>(C) * nacc) return;
-  const int c = static_cast<int>(i / nacc), t = static_cast<int>(i % nacc);
-  float sum = 0.f;
-  for (int b = 0; b < B; ++b) {
-    const float* const src = part + (static_cast<int64_t>(b) * C + c) * n_part * nacc + t;
-    for (int64_t p = 0; p < n_part; ++p) sum += src[p * nacc];
-  }
-  if (t < nacc - 1)
-    dw[static_cast<int64_t>(c) * (nacc - 1) + t] = sum;
-  else
-    db[c] = sum;
-}
-
-template <int K>
-int64_t scratch_floats(int64_t n_vol, int D, int H, int W) {
-  const Plan pl = make_plan<K>(n_vol, D, H, W);
-  return n_vol * pl.h_tiles * pl.w_tiles * pl.n_chunks * Cfg<K>::NACC;
+  const int64_t p_idx =
+      (static_cast<int64_t>(ring.ht) * w_tiles + ring.wt) * n_chunks + blockIdx.y;
+  double* const dst = part + (vol * n_part + p_idx) * NACC;
+  block_reduce<NACC>(acc, reinterpret_cast<double*>(ring.buf), ring.nthreads,
+                     [&](int) { return dst; });
 }
 
 template <typename T, int K>
-cudaError_t launch(const void* x, const void* g, float* dw, float* db, float* part,
-                   int64_t n_vol, int C, int D, int H, int W, cudaStream_t stream) {
-  const Plan pl = make_plan<K>(n_vol, D, H, W);
-  if (pl.smem > kMaxSmem) return cudaErrorInvalidConfiguration;
-  const int64_t gx = pl.vol_groups * pl.h_tiles * pl.w_tiles;
-  if (gx > INT_MAX || pl.n_chunks > 65535) return cudaErrorInvalidConfiguration;
-  dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(pl.n_chunks));
-  dim3 block(pl.bx, pl.by, pl.G);
-  dw_conv3_wgrad_kernel<T, K><<<grid, block, pl.smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), part, n_vol, D, H, W,
-      pl.h_tiles, pl.w_tiles, pl.d_chunk, pl.n_chunks);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int64_t n_part = static_cast<int64_t>(pl.h_tiles) * pl.w_tiles * pl.n_chunks;
-  const int64_t outs = static_cast<int64_t>(C) * Cfg<K>::NACC;
+__global__ void __launch_bounds__(kThreads, Cfg<K>::MINB)
+dw_conv3_wgrad_volume_kernel(const __grid_constant__ CUtensorMap xmap, const T* __restrict__ g,
+                             double* __restrict__ part, int64_t n_vol, int D, int H, int W,
+                             int tpv, int G, int nwc, int nhc, int BW, int BH, int BD) {
+  using Cf = Cfg<K>;
+  constexpr int P = Cf::P, VH = Cf::VH, K3 = Cf::K3, NWIN = Cf::NWIN, NACC = WCfg<K>::NACC;
+  constexpr int A = 16 / static_cast<int>(sizeof(T));   // staged columns left of 0
+  extern __shared__ unsigned char smem[];
+  const int box_elems = BW * BH * BD * G;
+  const int64_t vol0 = static_cast<int64_t>(blockIdx.x) * G;
+  const int gi = threadIdx.x / tpv, lane = threadIdx.x % tpv;
+  const int64_t vol = vol0 + gi;
+  const bool ok = gi < G && vol < n_vol;
+  float acc[NACC];
+#pragma unroll
+  for (int t = 0; t < NACC; ++t) acc[t] = 0.f;
+  T* const box = load_volumes<T, P>(smem, &xmap, box_elems, vol0);
+
+  if (ok) {
+    const T* const xs = box + static_cast<int64_t>(gi) * BD * BH * BW;
+    const T* const gv = g + vol * D * static_cast<int64_t>(H) * W;
+    const int S = nwc * nhc * D;
+    for (int cell = lane; cell < S; cell += tpv) {
+      const int wc = cell % nwc, t = cell / nwc, hc = t % nhc, d = t / nhc;
+      const int n_cols = min(W - wc * kVW, kVW);
+      float gr[VH][kVW];
+#pragma unroll
+      for (int vh = 0; vh < VH; ++vh) {
+        const int hh = hc * VH + vh;
+        GRow<T> raw;
+        raw.load(gv + (static_cast<int64_t>(d) * H + (hh < H ? hh : 0)) * W + wc * kVW,
+                 hh < H ? n_cols : 0, true);
+        raw.to_float(gr[vh]);
+#pragma unroll
+        for (int v = 0; v < kVW; ++v) acc[K3] += gr[vh][v];
+      }
+#pragma unroll
+      for (int dz = 0; dz < K; ++dz) {
+#pragma unroll
+        for (int r = 0; r < VH + K - 1; ++r) {
+          float win[NWIN];
+          read_row_halo<T, P>(xs + ((d + dz) * BH + hc * VH + r) * BW + wc * kVW + A, win);
+#pragma unroll
+          for (int vh = 0; vh < VH; ++vh) {
+            const int dy = r - vh;
+            if (dy < 0 || dy >= K) continue;
+#pragma unroll
+            for (int dx = 0; dx < K; ++dx) {
+              float sum = acc[(dz * K + dy) * K + dx];
+#pragma unroll
+              for (int v = 0; v < kVW; ++v) sum = fmaf(gr[vh][v], win[v + dx], sum);
+              acc[(dz * K + dy) * K + dx] = sum;
+            }
+          }
+        }
+      }
+    }
+  }
+
+  __syncthreads();                                  // the box is free for the reduction
+  block_reduce<NACC>(acc, reinterpret_cast<double*>(box), tpv, [&](int s) -> double* {
+    const int64_t v = vol0 + s;
+    return s < G && v < n_vol ? part + v * NACC : nullptr;
+  });
+}
+
+// dw[c, t] (t < k^3) and db[c] (t = k^3): the partials of channel c summed
+// in f64 over batch, then tile and chunk, in that fixed order.
+__global__ void dw_conv3_wgrad_reduce(const double* __restrict__ part, float* __restrict__ dw,
+                                      float* __restrict__ db, int B, int C, int64_t n_part,
+                                      int nacc) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<int64_t>(C) * nacc) return;
+  const int c = static_cast<int>(i / nacc), t = static_cast<int>(i % nacc);
+  double sum = 0.0;
+  for (int b = 0; b < B; ++b) {
+    const double* const src = part + (static_cast<int64_t>(b) * C + c) * n_part * nacc + t;
+    for (int64_t p = 0; p < n_part; ++p) sum += src[p * nacc];
+  }
+  if (t < nacc - 1)
+    dw[static_cast<int64_t>(c) * (nacc - 1) + t] = static_cast<float>(sum);
+  else
+    db[c] = static_cast<float>(sum);
+}
+
+// The partials per volume of a plan, or -1 for a route or plan the kernels
+// do not take (the launch checks the pointers besides).
+template <int K>
+int64_t parts_per_volume(int D, int H, int W, int es, int route, int p0, int p1, int p2) {
+  if (route == kRouteVolume) {
+    VolumePlan pl;
+    return make_volume_plan<K>(p0, p1, D, H, W, es, &pl) ? 1 : -1;
+  }
+  if (route != kRouteTma && route != kRouteCpAsync) return -1;
+  TilePlan pl;
+  if (!make_tile_plan<K>(p0, p1, p2, D, H, W, es, route == kRouteTma, &pl)) return -1;
+  return static_cast<int64_t>(pl.h_tiles) * pl.w_tiles * pl.n_chunks;
+}
+
+template <typename T, int K>
+cudaError_t launch(const void* x, const void* g, float* dw, float* db, double* part,
+                   int64_t n_vol, int C, int D, int H, int W, int route, int p0, int p1, int p2,
+                   cudaStream_t stream) {
+  const int es = static_cast<int>(sizeof(T));
+  CUtensorMap map;
+  memset(&map, 0, sizeof(map));
+  cudaError_t err;
+  int64_t n_part = 1;
+  if (route == kRouteVolume) {
+    VolumePlan pl;
+    if (!tma_ok(x, W, es) || !tma_ok(g, W, es) || !make_volume_plan<K>(p0, p1, D, H, W, es, &pl))
+      return cudaErrorInvalidValue;
+    const int64_t gx = ceil_div(n_vol, pl.G);
+    if (gx > INT_MAX) return cudaErrorInvalidConfiguration;
+    if ((err = encode_x_map<T>(&map, x, n_vol, D, H, W, pl.BW, pl.BH, pl.BD, pl.G)) != cudaSuccess)
+      return err;
+    // the block reduction reuses the box: it must hold a double per warp and sum
+    const size_t red = 256 + static_cast<size_t>(pl.threads / 32) * WCfg<K>::NACC * sizeof(double);
+    const size_t smem = pl.smem > red ? pl.smem : red;
+    auto kern = dw_conv3_wgrad_volume_kernel<T, K>;
+    if ((err = allow_smem(kern, smem)) != cudaSuccess) return err;
+    kern<<<static_cast<unsigned>(gx), pl.threads, smem, stream>>>(
+        map, static_cast<const T*>(g), part, n_vol, D, H, W, pl.tpv, pl.G, pl.nwc, pl.nhc,
+        pl.BW, pl.BH, pl.BD);
+  } else {
+    if (route != kRouteTma && route != kRouteCpAsync) return cudaErrorInvalidValue;
+    const bool tma = route == kRouteTma;
+    TilePlan pl;
+    if ((tma && (!tma_ok(x, W, es) || !tma_ok(g, W, es))) ||
+        !make_tile_plan<K>(p0, p1, p2, D, H, W, es, tma, &pl))
+      return cudaErrorInvalidValue;
+    const int64_t gx = n_vol * pl.h_tiles * pl.w_tiles;
+    if (gx > INT_MAX) return cudaErrorInvalidConfiguration;
+    if (tma && (err = encode_x_map<T>(&map, x, n_vol, D, H, W, pl.BW, pl.BH, 1, 1)) != cudaSuccess)
+      return err;
+    // the block reduction reuses the ring: it must hold a double per warp and sum
+    if (static_cast<size_t>(pl.bx * pl.by / 32) * WCfg<K>::NACC * sizeof(double) + 128 > pl.smem)
+      return cudaErrorInvalidConfiguration;
+    auto kern = tma ? dw_conv3_wgrad_tile_kernel<T, K, true>
+                    : dw_conv3_wgrad_tile_kernel<T, K, false>;
+    if ((err = allow_smem(kern, pl.smem)) != cudaSuccess) return err;
+    kern<<<dim3(static_cast<unsigned>(gx), pl.n_chunks), dim3(pl.bx, pl.by), pl.smem, stream>>>(
+        map, static_cast<const T*>(x), static_cast<const T*>(g), part, D, H, W, pl.h_tiles,
+        pl.w_tiles, pl.d_chunk, pl.n_chunks, pl.BW, pl.BH);
+    n_part = static_cast<int64_t>(pl.h_tiles) * pl.w_tiles * pl.n_chunks;
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int64_t outs = static_cast<int64_t>(C) * WCfg<K>::NACC;
   dw_conv3_wgrad_reduce<<<static_cast<unsigned>(ceil_div(outs, 256)), 256, 0, stream>>>(
-      part, dw, db, static_cast<int>(n_vol / C), C, n_part, Cfg<K>::NACC);
+      part, dw, db, static_cast<int>(n_vol / C), C, n_part, WCfg<K>::NACC);
   return cudaGetLastError();
 }
 
@@ -373,42 +433,48 @@ bool bad_shape(long long n_vol, int C, int D, int H, int W) {
 
 }  // namespace
 
-// Floats of f32 scratch that dw_conv3_wgrad needs for these shapes, or -1
-// for arguments it does not take.
-extern "C" long long dw_conv3_wgrad_scratch(long long n_vol, int C, int D, int H, int W,
-                                            int k) {
-  if (bad_shape(n_vol, C, D, H, W)) return -1;
+// Doubles of f64 scratch that dw_conv3_wgrad needs for these shapes,
+// dtype, route and plan (as dw_conv3_wgrad takes them), or -1 for
+// arguments it does not take: k^3 + 1 sums per (volume, tile, chunk), or
+// per volume on the volume route.
+extern "C" long long dw_conv3_wgrad_scratch(long long n_vol, int C, int D, int H, int W, int k,
+                                            int dtype, int route, int p0, int p1, int p2) {
+  if (bad_shape(n_vol, C, D, H, W) || (dtype != 0 && dtype != 1)) return -1;
+  const int es = dtype == 0 ? 4 : 2;
+  int64_t parts;
   switch (k) {
-    case 3: return scratch_floats<3>(n_vol, D, H, W);
-    case 5: return scratch_floats<5>(n_vol, D, H, W);
+    case 3: parts = parts_per_volume<3>(D, H, W, es, route, p0, p1, p2); break;
+    case 5: parts = parts_per_volume<5>(D, H, W, es, route, p0, p1, p2); break;
     default: return -1;
   }
+  return parts < 0 ? -1 : n_vol * parts * (k * k * k + 1);
 }
 
 // n_vol = B * C volumes of D x H x W in x and g; dtype: 0 = float32,
-// 1 = bfloat16. dw (C * k^3 floats), db (C floats) and scratch
-// (dw_conv3_wgrad_scratch floats) are f32 device buffers; every element of
-// dw, db and the scratch's used part is written, so none needs zeroing.
-// Returns cudaGetLastError() after the two launches, or
-// cudaErrorInvalidValue / cudaErrorInvalidConfiguration for arguments the
+// 1 = bfloat16; route and (p0, p1, p2) as dw_conv3_forward takes them. dw
+// (C * k^3 floats) and db (C floats) are f32 device buffers, scratch
+// (dw_conv3_wgrad_scratch doubles) an f64 one; every element of dw, db and
+// the scratch's used part is written, so none needs zeroing. Returns cudaGetLastError()
+// after the two launches, or cudaErrorInvalidValue /
+// cudaErrorInvalidConfiguration for arguments, a route or a plan the
 // kernel does not take. Launches on `stream`, allocates nothing and does
 // not synchronise.
-extern "C" int dw_conv3_wgrad(const void* x, const void* g, void* dw, void* db,
-                              void* scratch, long long n_vol, int C, int D, int H, int W,
-                              int k, int dtype, void* stream) {
+extern "C" int dw_conv3_wgrad(const void* x, const void* g, void* dw, void* db, void* scratch,
+                              long long n_vol, int C, int D, int H, int W, int k, int dtype,
+                              int route, int p0, int p1, int p2, void* stream) {
   if (bad_shape(n_vol, C, D, H, W)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* const dwf = static_cast<float*>(dw);
   float* const dbf = static_cast<float*>(db);
-  float* const part = static_cast<float*>(scratch);
+  double* const part = static_cast<double*>(scratch);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0 && k == 3)
-    err = launch<float, 3>(x, g, dwf, dbf, part, n_vol, C, D, H, W, s);
+    err = launch<float, 3>(x, g, dwf, dbf, part, n_vol, C, D, H, W, route, p0, p1, p2, s);
   else if (dtype == 0 && k == 5)
-    err = launch<float, 5>(x, g, dwf, dbf, part, n_vol, C, D, H, W, s);
+    err = launch<float, 5>(x, g, dwf, dbf, part, n_vol, C, D, H, W, route, p0, p1, p2, s);
   else if (dtype == 1 && k == 3)
-    err = launch<__nv_bfloat16, 3>(x, g, dwf, dbf, part, n_vol, C, D, H, W, s);
+    err = launch<__nv_bfloat16, 3>(x, g, dwf, dbf, part, n_vol, C, D, H, W, route, p0, p1, p2, s);
   else if (dtype == 1 && k == 5)
-    err = launch<__nv_bfloat16, 5>(x, g, dwf, dbf, part, n_vol, C, D, H, W, s);
+    err = launch<__nv_bfloat16, 5>(x, g, dwf, dbf, part, n_vol, C, D, H, W, route, p0, p1, p2, s);
   return static_cast<int>(err);
 }

@@ -2,10 +2,10 @@
 C interface, loaded with ctypes.
 
 Each source ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so``; the
-hash covers the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. Nothing is built at import: the first call
-of a kernel's wrapper builds its library, or a caller builds it up front
-with `build`.
+hash covers the source, the headers in ``csrc/`` and the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is.
+Nothing is built at import: the first call of a kernel's wrapper builds its
+library, or a caller builds it up front with `build`.
 """
 
 from __future__ import annotations
@@ -36,8 +36,13 @@ def _nvcc() -> str:
 
 def _target(name: str) -> tuple[str, str]:
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # the source and every header beside it (a source includes its headers
+    # from csrc/ by relative path)
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

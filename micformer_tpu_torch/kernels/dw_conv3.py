@@ -18,6 +18,15 @@ for CUDA tensors and raise on what a kernel does not take; for CPU tensors
 they compute `dw_conv3_reference`, `dw_conv3_backward_reference` and
 `dw_conv3_wgrad_reference`, the plain PyTorch versions the kernels are held
 against.
+
+Both kernels stage x in one of three routes, which `_dw_route` picks from
+the shape, dtype and alignment alone: "tma" (TMA boxes of halo'd planes),
+"volume" (one TMA box of whole volumes when D, H, W <= 16) and "cp_async"
+(cp.async copies where TMA cannot describe x). `_dw_plan` gives the route's
+launch geometry, which the C entry points check; each launch adds one to
+`ROUTES[kernel][route]` beside `LAUNCHES[kernel]`. A route the inputs cannot
+take makes the launch fail and the wrapper raise; nothing falls back to the
+plain versions.
 """
 
 from __future__ import annotations
@@ -32,6 +41,116 @@ from micformer_tpu_torch.kernels import LAUNCHES, _build
 
 KERNEL_SIZES = (3, 5)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+ROUTE_NAMES = ("tma", "volume", "cp_async")      # C route codes 0, 1, 2
+# launches of each kernel by route, beside LAUNCHES
+ROUTES: dict[str, dict[str, int]] = {name: dict.fromkeys(ROUTE_NAMES, 0)
+                                     for name in ("dw_conv3", "dw_conv3_wgrad")}
+
+# the plans are sized for an H100: 132 SMs; a block has at most 256 threads;
+# at k = 3 a thread keeps under 128 registers, so an SM holds 512 of them,
+# at k = 5 (125 weights in registers) 256
+_SMS = 132
+_THREADS = 256
+_VW = 8                     # W-adjacent outputs per thread (csrc/dw_stage.cuh kVW)
+_VOLUME_MAX = 16            # the volume route takes D, H, W up to this
+_VOLUME_SMEM = 96 * 1024    # volumes per block are cut to fit this
+
+
+def reset_routes() -> None:
+    for counts in ROUTES.values():
+        for route in counts:
+            counts[route] = 0
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _pow2_ceil(v: int) -> int:
+    return 1 << max(v - 1, 0).bit_length()
+
+
+def _rows_per_thread(k: int) -> int:
+    return 2 if k == 3 else 1
+
+
+def _dw_route(shape, dtype, k: int, *data_ptrs: int) -> str:
+    """The staging route of both kernels for x (and g) of this shape and
+    dtype at these addresses: "cp_async" unless TMA can describe every
+    tensor (each address 16-byte aligned, W * element size a multiple of 16
+    bytes), else "volume" when D, H and W are all at most 16, else "tma"."""
+    if dtype not in _ELEMENT_BYTES or k not in KERNEL_SIZES or len(shape) != 5:
+        raise ValueError(f"dw_conv3: no route for shape {tuple(shape)}, {dtype}, k {k}")
+    D, H, W = shape[2:]
+    if any(p % 16 for p in data_ptrs) or (W * _ELEMENT_BYTES[dtype]) % 16:
+        return "cp_async"
+    return "volume" if max(D, H, W) <= _VOLUME_MAX else "tma"
+
+
+def _dw_plan(shape, dtype, k: int, route: str) -> tuple[int, int, int]:
+    """The launch geometry of `route` for x of this shape, as the C entry
+    points take it.
+
+    "tma" and "cp_async": (bx, by, D chunk). A block of bx x by threads
+    (a multiple of 32) owns a tile of by * VH rows and bx * 8 columns of one
+    volume (VH 2 at k = 3, 1 at k = 5) and walks a chunk of D; the chunk,
+    of 32, 16 or 8 planes, is the one whose waves of blocks times planes
+    staged per block (chunk + k - 1) is least.
+    "volume": (threads per volume, volumes per block, 0): a power of two of
+    threads for each volume's cells, and as many volumes a block as fit in
+    256 threads and 96 KB, cut until the grid has 2 blocks per SM."""
+    B, C, D, H, W = shape
+    n_vol, es, p, vh = B * C, _ELEMENT_BYTES[dtype], k // 2, _rows_per_thread(k)
+    if route == "volume":
+        nwc, nhc = _ceil_div(W, _VW), _ceil_div(H, vh)
+        tpv = min(_pow2_ceil(nwc * nhc * D), _THREADS)
+        a = 16 // es                    # staged columns left of the volume
+        box = _ceil_div(a + nwc * _VW + p, a) * a * (nhc * vh + 2 * p) * (D + 2 * p) * es
+        g = max(1, _THREADS // tpv)
+        while g > 1 and (_ceil_div(n_vol, g) < 2 * _SMS or g * box > _VOLUME_SMEM):
+            g -= 1
+        return tpv, g, 0
+    if route not in ROUTE_NAMES:
+        raise ValueError(f"dw_conv3: unknown route {route!r}")
+    bx = min(_pow2_ceil(_ceil_div(W, _VW)), 16)
+    by = min(_THREADS // bx, _ceil_div(H, vh), 64)
+    by = _ceil_div(by, max(1, 32 // bx)) * max(1, 32 // bx)
+    tiles = n_vol * _ceil_div(H, by * vh) * _ceil_div(W, bx * _VW)
+    slots = _SMS * max(1, (512 if k == 3 else 256) // (bx * by))
+    best = None
+    for chunk in sorted({min(c, D) for c in (32, 16, 8)}, reverse=True):
+        cost = _ceil_div(tiles * _ceil_div(D, chunk), slots) * (chunk + 2 * p)
+        if best is None or cost < best[0]:
+            best = (cost, chunk)
+    return bx, by, best[1]
+
+
+# f32 weight gradients sum in D chunks of at most this many planes, so each
+# thread's chain of f32 adds stays short (csrc/dw_conv3_wgrad.cu, accuracy)
+_F32_WGRAD_CHUNK = 8
+
+
+def _wgrad_plan(shape, dtype, k: int, route: str) -> tuple[int, int, int]:
+    """The weight-gradient kernel's plan: `_dw_plan`'s, with f32's D chunk
+    cut to _F32_WGRAD_CHUNK planes."""
+    plan = _dw_plan(shape, dtype, k, route)
+    if route == "volume" or dtype != torch.float32:
+        return plan
+    return plan[0], plan[1], min(plan[2], _F32_WGRAD_CHUNK)
+
+
+def _wgrad_scratch_size(shape, k: int, route: str, plan) -> int:
+    """f64 scratch of the weight-gradient kernel for `plan`: k³ + 1 sums
+    per (volume, tile, D chunk), or per volume on the volume route."""
+    B, C, D, H, W = shape
+    if route == "volume":
+        parts = 1
+    else:
+        bx, by, chunk = plan
+        parts = (_ceil_div(H, by * _rows_per_thread(k)) * _ceil_div(W, bx * _VW)
+                 * _ceil_div(D, min(chunk, D)))
+    return B * C * parts * (k ** 3 + 1)
 
 
 def dw_conv3_reference(x, w, bias=None):
@@ -88,7 +207,7 @@ def dw_conv3_backward_reference(x, w, g):
 def _forward_fn():
     """The kernel's C entry point, with its signature set once."""
     fn = _build.load("dw_conv3").dw_conv3_forward
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 6 \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 10 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -121,34 +240,40 @@ def _wgrad_fns():
     with their signatures set once."""
     lib = _build.load("dw_conv3_wgrad")
     size = lib.dw_conv3_wgrad_scratch
-    size.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 5
+    size.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 10
     size.restype = ctypes.c_longlong
     fn = lib.dw_conv3_wgrad
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 6 \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 10 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return size, fn
 
 
-def _forward(x, w, bias):
-    """The K3 launch for checked CUDA tensors, the plain version for CPU
-    ones."""
+def _forward(x, w, bias, route: str | None = None):
+    """The K3 launch for checked CUDA tensors, on `_dw_route`'s route
+    unless `route` names one; the plain version for CPU ones."""
     if x.device.type == "cpu":
         return dw_conv3_reference(x, w, bias)
     if x.device.type != "cuda":
         raise ValueError(f"dw_conv3: unsupported device {x.device}")
     B, C, D, H, W = x.shape
+    k = w.shape[-1]
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
+    route = route or _dw_route(x.shape, x.dtype, k, x.data_ptr())
+    plan = _dw_plan(x.shape, x.dtype, k, route)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _forward_fn()(x.data_ptr(), w.data_ptr(),
                             0 if bias is None else bias.data_ptr(), out.data_ptr(),
-                            B * C, C, D, H, W, w.shape[-1], _DTYPE_CODES[x.dtype], stream)
+                            B * C, C, D, H, W, k, _DTYPE_CODES[x.dtype],
+                            ROUTE_NAMES.index(route), *plan, stream)
     if err != 0:
-        raise RuntimeError(f"dw_conv3: kernel launch failed (cudaError {err})")
+        raise RuntimeError(f"dw_conv3: kernel launch failed on route {route} "
+                           f"(cudaError {err})")
     LAUNCHES["dw_conv3"] += 1
+    ROUTES["dw_conv3"][route] += 1
     return out
 
 
@@ -174,6 +299,13 @@ def dw_conv3_wgrad(x, g, k: int):
                          f"{tuple(_DTYPE_CODES)} and k in {KERNEL_SIZES}, got "
                          f"{tuple(x.shape)} {x.dtype}, k {k}")
     _check_grad(x, g)
+    return _wgrad(x, g, k)
+
+
+def _wgrad(x, g, k: int, route: str | None = None):
+    """The weight-gradient launch for checked CUDA tensors, on
+    `_dw_route`'s route for x and g unless `route` names one; the plain
+    version for CPU ones."""
     if x.device.type == "cpu":
         return dw_conv3_wgrad_reference(x, g, k)
     if x.device.type != "cuda":
@@ -183,18 +315,24 @@ def dw_conv3_wgrad(x, g, k: int):
     db = torch.zeros((C,), dtype=torch.float32, device=x.device)
     if x.numel() == 0:
         return dw, db
+    route = route or _dw_route(x.shape, x.dtype, k, x.data_ptr(), g.data_ptr())
+    args = (B * C, C, D, H, W, k, _DTYPE_CODES[x.dtype], ROUTE_NAMES.index(route),
+            *_wgrad_plan(x.shape, x.dtype, k, route))
     size, fn = _wgrad_fns()
-    n = size(B * C, C, D, H, W, k)
+    n = size(*args)
     if n < 0:
-        raise ValueError(f"dw_conv3_wgrad: shape {tuple(x.shape)}, k {k} not supported")
-    scratch = torch.empty((n,), dtype=torch.float32, device=x.device)
+        raise RuntimeError(f"dw_conv3_wgrad: shape {tuple(x.shape)}, k {k} not taken "
+                           f"on route {route}")
+    scratch = torch.empty((n,), dtype=torch.float64, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), g.data_ptr(), dw.data_ptr(), db.data_ptr(),
-                 scratch.data_ptr(), B * C, C, D, H, W, k, _DTYPE_CODES[x.dtype], stream)
+                 scratch.data_ptr(), *args, stream)
     if err != 0:
-        raise RuntimeError(f"dw_conv3_wgrad: kernel launch failed (cudaError {err})")
+        raise RuntimeError(f"dw_conv3_wgrad: kernel launch failed on route {route} "
+                           f"(cudaError {err})")
     LAUNCHES["dw_conv3_wgrad"] += 1
+    ROUTES["dw_conv3_wgrad"][route] += 1
     return dw, db
 
 

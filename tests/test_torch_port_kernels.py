@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card:
 window attention (K1) and its backward, the fused window attention (K2) and
 its backward, and the depthwise k³ conv (K3) and its backward (dx through
-K3, dw and db through the weight-gradient kernel).
+K3, dw and db through the weight-gradient kernel), on each of their three
+staging routes (tma, volume, cp_async).
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only the port's dependencies:
@@ -19,7 +20,9 @@ import torch
 
 from micformer_tpu_torch.kernels import LAUNCHES
 from micformer_tpu_torch.kernels.dw_conv3 import (
-    dw_conv3, dw_conv3_backward, dw_conv3_backward_reference, dw_conv3_reference,
+    _DTYPE_CODES, ROUTE_NAMES, ROUTES, _dw_route, _forward, _wgrad, _wgrad_fns,
+    _wgrad_plan, _wgrad_scratch_size, dw_conv3, dw_conv3_backward,
+    dw_conv3_backward_reference, dw_conv3_reference, dw_conv3_wgrad_reference,
 )
 from micformer_tpu_torch.kernels.fused_window_attention import (
     fused_window_attention, fused_window_attention_backward,
@@ -346,3 +349,120 @@ def test_dw_conv3_gradcheck_on_card(cuda_device):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")             # gradcheck prefers f64; K3 takes f32
         assert torch.autograd.gradcheck(dw_conv3, (x, w, b), eps=1e-2, atol=5e-3, rtol=1e-2)
+
+
+def _on_card(shape, dt, dev, offset=0, seed=0):
+    """A seeded normal tensor of `shape` on the card, `offset` elements into
+    its storage."""
+    a = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    t = torch.empty(int(np.prod(shape)) + offset, dtype=dt, device=dev)[offset:]
+    return t.view(shape).copy_(torch.from_numpy(a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,shape,k,offset", [
+    ("tma", (1, 4, 37, 40, 128), 3, 0),         # 128 wide, D not a multiple of the chunk
+    ("tma", (1, 3, 21, 19, 136), 5, 0),
+    ("volume", (4, 512, 8, 8, 8), 3, 0),        # the bottleneck at sw_batch 4
+    ("volume", (2, 256, 16, 16, 16), 3, 0),     # stage 3 in a b2 training step
+    ("volume", (3, 5, 11, 16, 8), 5, 0),
+    ("cp_async", (2, 3, 9, 10, 13), 3, 0),      # W % 8 != 0
+    ("cp_async", (1, 6, 5, 7, 12), 3, 1),       # one element off 16-byte alignment
+    ("cp_async", (1, 4, 7, 9, 21), 5, 1),
+])
+def test_dw_conv3_routes_match_reference_on_card(cuda_device, route, shape, k, offset):
+    """Each staging route, as `_dw_route` picks it, against the plain
+    versions in f32 and bf16: K3 with a bias, dx (K3 on the flipped weight),
+    dw and db; each launch counted on its route."""
+    C = shape[1]
+    for dt in (torch.float32, torch.bfloat16):
+        x = _on_card(shape, dt, cuda_device, offset, seed=1)
+        g = _on_card(shape, dt, cuda_device, offset, seed=2)
+        w = (_on_card((C, 1, k, k, k), dt, cuda_device, seed=3).float() / k ** 1.5).to(dt)
+        b = _on_card((C,), dt, cuda_device, seed=4)
+        assert _dw_route(shape, dt, k, x.data_ptr(), g.data_ptr()) == route
+        before = {name: dict(c) for name, c in ROUTES.items()}
+        got = dw_conv3(x, w, b)
+        dx, dw, db = dw_conv3_backward(x, w, g)
+        torch.cuda.synchronize()
+        assert ROUTES["dw_conv3"][route] == before["dw_conv3"][route] + 2
+        assert ROUTES["dw_conv3_wgrad"][route] == before["dw_conv3_wgrad"][route] + 1
+        torch.testing.assert_close(got.float(), dw_conv3_reference(x, w, b).float(),
+                                   **DW_TOL[dt], msg=f"forward {dt}")
+        for name, a, r in zip(("dx", "dw", "db"), (dx, dw, db),
+                              dw_conv3_backward_reference(x, w, g)):
+            tol = DW_TOL[dt] if name == "dx" else DW_BWD_TOL[dt]
+            torch.testing.assert_close(a.float(), r.float(), **tol, msg=f"{name} {dt}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 32, 40, 48, 64), (4, 512, 8, 8, 8),
+                                   (2, 24, 13, 15, 17)])
+def test_dw_conv3_wgrad_is_bitwise_reproducible_on_card(cuda_device, shape):
+    """dw and db have no atomics and a fixed summation order: two calls on
+    the same inputs agree bit for bit (tma, volume and cp_async shapes)."""
+    for dt in (torch.float32, torch.bfloat16):
+        x = _on_card(shape, dt, cuda_device, seed=5)
+        g = _on_card(shape, dt, cuda_device, seed=6)
+        first = _wgrad(x, g, 3)
+        second = _wgrad(x, g, 3)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_dw_conv3_refuses_routes_the_inputs_cannot_take_on_card(cuda_device):
+    """A route the inputs cannot take fails in the C entry and raises: TMA
+    for rows that are not 16-byte multiples or a misaligned tensor, the
+    volume route above 16³; nothing is counted and nothing falls back."""
+    w = torch.randn(3, 1, 3, 3, 3, device=cuda_device)
+    ragged = torch.randn(1, 3, 6, 6, 13, device=cuda_device)           # W * 4 % 16 != 0
+    shifted = _on_card((1, 3, 6, 6, 16), torch.float32, cuda_device, offset=1)
+    big = torch.randn(1, 3, 17, 16, 16, device=cuda_device)
+    before = dict(LAUNCHES), {name: dict(c) for name, c in ROUTES.items()}
+    for x, route in ((ragged, "tma"), (ragged, "volume"), (shifted, "tma"), (big, "volume")):
+        with pytest.raises(RuntimeError):
+            _forward(x, w, None, route=route)
+        with pytest.raises(RuntimeError):
+            _wgrad(x, x, 3, route=route)
+    with pytest.raises(ValueError):
+        _forward(big, w, None, route="cuda")
+    assert dict(LAUNCHES) == before[0]
+    assert {name: dict(c) for name, c in ROUTES.items()} == before[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k", [((2, 32, 128, 128, 128), 3), ((2, 512, 8, 8, 8), 3),
+                                     ((2, 24, 37, 45, 51), 3), ((1, 16, 19, 23, 70), 5),
+                                     ((2, 3, 6, 5, 7), 5)])
+def test_dw_conv3_wgrad_scratch_follows_the_plan_on_card(cuda_device, shape, k):
+    """The C scratch query agrees with the plan's count of partials on
+    every route the shape can take."""
+    size, _ = _wgrad_fns()
+    B, C, D, H, W = shape
+    for dt in (torch.float32, torch.bfloat16):
+        for route in ROUTE_NAMES:
+            plan = _wgrad_plan(shape, dt, k, route)
+            n = size(B * C, C, D, H, W, k, _DTYPE_CODES[dt], ROUTE_NAMES.index(route), *plan)
+            if route == "volume" and max(D, H, W) > 16:
+                assert n == -1
+            else:
+                assert n == _wgrad_scratch_size(shape, k, route, plan), (route, dt)
+
+
+@pytest.mark.cuda
+def test_dw_conv3_forced_routes_agree_on_card(cuda_device):
+    """One 16³ input forced through all three routes: the same f32 sums in
+    the same (dz, dy, dx) order, so K3's outputs agree bit for bit and dw
+    within f32 reordering."""
+    x = _on_card((2, 8, 16, 16, 16), torch.float32, cuda_device, seed=7)
+    g = _on_card((2, 8, 16, 16, 16), torch.float32, cuda_device, seed=8)
+    w = _on_card((8, 1, 3, 3, 3), torch.float32, cuda_device, seed=9)
+    outs = [_forward(x, w, None, route=r) for r in ROUTE_NAMES]
+    grads = [_wgrad(x, g, 3, route=r) for r in ROUTE_NAMES]
+    ref = dw_conv3_wgrad_reference(x, g, 3)
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+    for dw, db in grads:
+        torch.testing.assert_close(dw, ref[0], **DW_BWD_TOL[torch.float32])
+        torch.testing.assert_close(db, ref[1], **DW_BWD_TOL[torch.float32])
