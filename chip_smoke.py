@@ -9,14 +9,22 @@ Phases; any error in any of them fails the run (non-zero exit, no result line):
                paths from csrc/, one nvcc per source, all started together;
                then, per kernel function, cuobjdump's SASS of its main loop
                (the backward branch that holds the most FFMAs): instructions
-               and FFMAs.
+               and FFMAs, and the function's FFMAs and HMMAs (tensor-core mmas).
   3. kernels - each kernel against its plain PyTorch version on the card at its
                paths' shapes, f32 and bf16, with kernel, plain-version,
                library-call and bound times:
-               K1 window attention in the layouts the MicFormer path hands it
-               (contiguous, and q/k/v as slices of the fused qkv or kv
-               projection); K1's backward at the training stage shapes (b1,
-               128³) in the self and cross layouts; K2 fused window attention,
+               K1 window attention (after the harness's floor: time_ms of a
+               one-block kernel) at the four stage shapes of a b4 serving
+               forward and two ragged ones, in the layouts the MicFormer path
+               hands it (contiguous, and q/k/v as slices of the fused qkv or
+               kv projection); K1's backward at the four training stage shapes
+               (b1, 128³) in the self and cross layouts; each K1 row names the
+               route its checked launch counted in the wrapper's ROUTES (mma
+               in bf16, ffma in f32) and the time_ms of one device copy that moves the same bytes, and the
+               two are summed over one pass (the b4 forward's and the b1
+               step's 16/16/48/16 launches at the four stages); then K1 and
+               its backward captured once in a CUDA graph, replayed and held
+               bitwise against their eager results; K2 fused window attention,
                forward and backward, on the [N, h, T, d] views of the same
                layouts and at its contract's corners (T 4-32, d 8-128, tails);
                K3 depthwise k³ conv at MedNeXt-S's five stage shapes and two
@@ -41,8 +49,9 @@ Phases; any error in any of them fails the run (non-zero exit, no result line):
   5. serve   - per model, the same weights in bf16 through the port's serve
                loop: one cold warm-up request, then three [2, 160³] requests,
                roi 128, overlap 0.5, gaussian, sw_batch 4. Launch counts, K3's
-               staging routes (tma and volume only) and peak memory are reset
-               just before the three and read just after.
+               staging routes (tma and volume only), K1's routes (mma only)
+               and peak memory are reset just before the three and read just
+               after.
   6. train   - cli/train.main at full width in bf16 on a synthetic MM-WHS root
                (six cases preprocessed to 128³: four train, one validation).
                MicFormer: two epochs with validation, then --resume for a
@@ -51,9 +60,9 @@ Phases; any error in any of them fails the run (non-zero exit, no result line):
                with validation, --resume for a third, then three epochs of
                the nnU-Net preset (deep supervision, dice_ce, the nnunet
                augmentation, SGD-Nesterov, clipping 12); every step 36 K3 and
-               18 wgrad launches, on the tma and volume routes only. Launch
-               counts, routes and peak memory are reset just before each run
-               and read just after.
+               18 wgrad launches, on the tma and volume routes only; K1 and its
+               backward on the mma route only. Launch counts, routes and peak
+               memory are reset just before each run and read just after.
   7. lines   - a {"kernels": [...]} line, then the {"ok": true, ...} line last.
 """
 
@@ -120,6 +129,9 @@ ATTN_SHAPES = [(16384, 8, 3, 16), (2048, 8, 6, 16), (256, 8, 12, 16),
 # fused projections (self: qkv split in thirds; cross: q alone, kv in halves)
 ATTN_LAYOUTS = ("contiguous", "self", "cross")
 ATTN_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# K1 launches at the four stages of one MicFormer pass (a forward at sw_batch
+# 4, or a b1 training step's backward): 16, 16, 48 and 16 of the 96
+ATTN_STAGE_LAUNCHES = [16, 16, 48, 16]
 # ([B, C, D, H, W], k): MedNeXt-S's stride-1 depthwise convs at sw_batch 4,
 # roi 128 (stages 0-3, each run by 2 encoder and 2 decoder blocks, then the
 # bottleneck), then two ragged cases whose D, H, W are not tile multiples
@@ -186,8 +198,26 @@ def path_routes(routes):
 
 
 # a path at roi 128 (or 64) runs the depthwise kernels on the tma route down
-# to 32³ and the volume route at 16³ and 8³, never on cp_async
+# to 32³ and the volume route at 16³ and 8³, never on cp_async; the bf16
+# MicFormer paths run both K1 kernels on the mma route
 PATH_ROUTES = ["tma", "volume"]
+ATTN_PATH_ROUTES = ["mma"]
+
+
+def all_routes():
+    """The routes a run used, per K3-family and K1 kernel."""
+    from micformer_tpu_torch.kernels.dw_conv3 import ROUTES
+    from micformer_tpu_torch.kernels.window_attention import ROUTES as ATTN_ROUTES
+
+    return path_routes({**ROUTES, **ATTN_ROUTES})
+
+
+def reset_all_routes():
+    from micformer_tpu_torch.kernels.dw_conv3 import reset_routes
+    from micformer_tpu_torch.kernels.window_attention import reset_routes as reset_attn
+
+    reset_routes()
+    reset_attn()
 
 
 def time_ms(fn, reps=20):
@@ -209,6 +239,15 @@ def time_ms(fn, reps=20):
         events.append((s, e))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in events) / reps
+
+
+def copy_ms(nbytes):
+    """time_ms of one device-to-device copy that reads nbytes / 2 and writes
+    nbytes / 2: what the harness gives a single streaming kernel that moves
+    the same bytes (cold L2 after the flush, launch and event overhead)."""
+    src = torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    return time_ms(lambda: dst.copy_(src))
 
 
 def phase_device():
@@ -288,6 +327,7 @@ def sass_report(libs):
                     best = (len(body_ops), ffma, body_ops)
             total = len(insns)
             ffma_all = sum(o.startswith("FFMA") for _, o, _ in insns)
+            hmma_all = sum(o.startswith("HMMA") for _, o, _ in insns)
             loop = "no loop"
             if best:
                 top = sorted(set(best[2]), key=best[2].count, reverse=True)[:8]
@@ -295,7 +335,7 @@ def sass_report(libs):
                         f"({100.0 * best[1] / max(best[0], 1):.1f} %) ["
                         + " ".join(f"{o} {best[2].count(o)}" for o in top) + "]")
             log(f"sass: {os.path.basename(lib)} {name.strip()}: {loop}; function {total} "
-                f"instructions, {ffma_all} FFMA")
+                f"instructions, {ffma_all} FFMA, {hmma_all} HMMA")
 
 
 def attn_inputs(gen, layout, N, T, h, d, dt):
@@ -313,20 +353,36 @@ def attn_inputs(gen, layout, N, T, h, d, dt):
     return tuple(rand(C).view(N, T, h, d) for _ in range(3))
 
 
+def routed(kernel, fn):
+    """fn()'s result (after a synchronize) and the one route of `kernel`
+    it launched on, read from the wrapper's ROUTES counts around the call."""
+    from micformer_tpu_torch.kernels.window_attention import ROUTES, reset_routes
+
+    reset_routes()
+    out = fn()
+    torch.cuda.synchronize()
+    used = [r for r, n in ROUTES[kernel].items() if n]
+    if [ROUTES[kernel][r] for r in used] != [1]:
+        raise AssertionError(f"{kernel}: one launch on one route expected, got {ROUTES[kernel]}")
+    return out, used[0]
+
+
 def phase_attention_kernel():
     from micformer_tpu_torch.kernels.window_attention import (
         window_attention, window_attention_reference,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    tiny = torch.zeros(32, device="cuda")
+    log(f"floor: time_ms of a one-block kernel (zero_ on 32 floats) "
+        f"{1e3 * time_ms(tiny.zero_):.2f} us")
     rows = []
     for (N, T, h, d), layout, dt in itertools.product(
             ATTN_SHAPES, ATTN_LAYOUTS, (torch.float32, torch.bfloat16)):
         q, k, v = attn_inputs(gen, layout, N, T, h, d, dt)
         if layout != "contiguous" and k.is_contiguous():
             raise AssertionError(f"{layout} inputs should be strided views")
-        got = window_attention(q, k, v)
-        torch.cuda.synchronize()
+        got, route = routed("window_attention", lambda: window_attention(q, k, v))
         ref = window_attention_reference(q, k, v)
         err = (got.float() - ref.float()).abs().max().item()
         if not (err <= ATTN_ATOL[dt]):
@@ -337,16 +393,18 @@ def phase_attention_kernel():
         ops = 4 * N * h * T * T * d + 3 * N * h * T * T
         row = {"shape": [N, T, h, d], "layout": layout,
                "dtype": str(dt).replace("torch.", ""), "max_abs_err": err,
-               "ms": time_ms(lambda: window_attention(q, k, v)),
+               "route": route, "ms": time_ms(lambda: window_attention(q, k, v)),
                "plain_ms": time_ms(lambda: window_attention_reference(q, k, v)),
                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+               "copy_ms": copy_ms(nbytes),
                "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dt]),
                "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                             >= ops / PEAK_OPS_PER_S[dt] else "operations")}
         rows.append(row)
-        log(f"kernel window_attention {row['shape']} {layout} {row['dtype']}: err "
+        log(f"kernel window_attention {row['shape']} {layout} {row['dtype']} {row['route']}: err "
             f"{err:.3g}, kernel {1e3 * row['ms']:.2f} us, plain "
             f"{1e3 * row['plain_ms']:.2f} us, sdpa {1e3 * row['library_ms']:.2f} us, "
+            f"copy of the same bytes {1e3 * row['copy_ms']:.2f} us, "
             f"bound {1e3 * row['bound_ms']:.2f} us ({row['bound_by']})")
     return rows
 
@@ -388,25 +446,93 @@ def phase_attention_backward_kernel():
             TRAIN_SHAPES, ("self", "cross"), (torch.float32, torch.bfloat16)):
         q, k, v = attn_inputs(gen, layout, N, T, h, d, dt)
         g = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
-        got = window_attention_backward(q, k, v, g)
-        torch.cuda.synchronize()
+        got, route = routed("window_attention_backward",
+                            lambda: window_attention_backward(q, k, v, g))
         err = check_grads(f"window_attention_backward {(N, T, h, d)} {layout} {dt}", got,
                           window_attention_backward_reference(q, k, v, g), dt)
         lib = leaves(*(t.transpose(1, 2) for t in (q, k, v))) + [g.transpose(1, 2).contiguous()]
-        ms, bound_by = bound(7 * q.numel() * q.element_size(),
-                             N * h * (10 * T * T * d + 5 * T * T), dt)
+        nbytes = 7 * q.numel() * q.element_size()
+        ms, bound_by = bound(nbytes, N * h * (10 * T * T * d + 5 * T * T), dt)
         row = {"shape": [N, T, h, d], "layout": layout,
                "dtype": str(dt).replace("torch.", ""), "max_abs_err": err,
+               "route": route,
                "ms": time_ms(lambda: window_attention_backward(q, k, v, g)),
                "plain_ms": time_ms(lambda: window_attention_backward_reference(q, k, v, g)),
                "library_ms": time_ms(lambda: sdpa_backward(*lib)),
-               "bound_ms": ms, "bound_by": bound_by}
+               "copy_ms": copy_ms(nbytes), "bound_ms": ms, "bound_by": bound_by}
         rows.append(row)
-        log(f"kernel window_attention_backward {row['shape']} {layout} {row['dtype']}: err "
+        log(f"kernel window_attention_backward {row['shape']} {layout} {row['dtype']} "
+            f"{row['route']}: err "
             f"{err:.3g}, kernel {1e3 * row['ms']:.2f} us, plain {1e3 * row['plain_ms']:.2f} us, "
-            f"sdpa fwd+bwd {1e3 * row['library_ms']:.2f} us, bound "
+            f"sdpa fwd+bwd {1e3 * row['library_ms']:.2f} us, copy of the same bytes "
+            f"{1e3 * row['copy_ms']:.2f} us, bound "
             f"{1e3 * row['bound_ms']:.2f} us ({bound_by})")
     return rows
+
+
+def attn_pass_sums(fwd_rows, bwd_rows):
+    """Kernel, library and bound time of one MicFormer pass of each K1
+    kernel, q/k/v sliced from the fused qkv projection: the forward's rows at
+    the serving stage shapes (a b4 forward) and the backward's at the
+    training ones (a b1 step), each times its launches (ATTN_STAGE_LAUNCHES)."""
+    sums = {}
+    for name, rows, shapes in (("window_attention (b4 forward)", fwd_rows, ATTN_SHAPES),
+                               ("window_attention_backward (b1 step)", bwd_rows, TRAIN_SHAPES)):
+        for dt in ("float32", "bfloat16"):
+            sel = [next(r for r in rows if r["shape"] == list(shape) and r["dtype"] == dt
+                        and r["layout"] == "self") for shape in shapes[:4]]
+            s = {key: sum(n * r[key] for n, r in zip(ATTN_STAGE_LAUNCHES, sel))
+                 for key in ("ms", "library_ms", "copy_ms", "bound_ms")}
+            sums[f"{name} {dt}"] = s
+            log(f"pass sum {name} {dt}: kernel {1e3 * s['ms']:.1f} us, sdpa "
+                f"{1e3 * s['library_ms']:.1f} us, copies {1e3 * s['copy_ms']:.1f} us, "
+                f"bound {1e3 * s['bound_ms']:.1f} us "
+                f"({sum(ATTN_STAGE_LAUNCHES)} launches; stages "
+                + ", ".join(f"{1e3 * r['ms']:.2f}" for r in sel) + " us)")
+    return sums
+
+
+def phase_attention_graph():
+    """K1 and its backward captured once in a CUDA graph on static inputs (the
+    training stage-0 shape, self layout, f32 and bf16), replayed, and held
+    bitwise against the eager results: the wrappers and C entries allocate
+    nothing and never synchronise inside the capture."""
+    from micformer_tpu_torch.kernels.window_attention import (
+        window_attention, window_attention_backward,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    N, T, h, d = TRAIN_SHAPES[0]
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = attn_inputs(gen, "self", N, T, h, d, dt)
+        g = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
+
+        def both():
+            return (window_attention(q, k, v), *window_attention_backward(q, k, v, g))
+
+        eager = both()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            both()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static = both()
+        for t in static:
+            t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(static, eager)]
+        log(f"graph: window_attention and its backward {[N, T, h, d]} self "
+            f"{str(dt).replace('torch.', '')}: replay equals eager bitwise (out, dq, dk, dv) "
+            f"{same}")
+        if not all(same):
+            raise AssertionError(f"graph replay of K1 differs from eager: {same}")
+        res[str(dt)] = same
+        del graph, static, eager
+    return res
 
 
 def phase_fused_kernel():
@@ -751,7 +877,6 @@ def phase_train(work):
     from micformer_tpu_torch.cli import train
     from micformer_tpu_torch.data.synthetic import write_synthetic_dataset
     from micformer_tpu_torch.kernels import LAUNCHES, reset_launches
-    from micformer_tpu_torch.kernels.dw_conv3 import ROUTES, reset_routes
 
     data = os.path.join(work, "mmwhs")
     t0 = time.perf_counter()
@@ -784,13 +909,16 @@ def phase_train(work):
     for name, args, key, batch, want_steps in plan:
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        reset_routes()
+        reset_all_routes()
         t0 = time.perf_counter()
         trainer = train.main(common + args)
         wall = time.perf_counter() - t0
         launches = dict(LAUNCHES)
-        routes = path_routes(ROUTES)
-        want_routes = PATH_ROUTES if key == "mednext" else []
+        routes = all_routes()
+        dw_routes = PATH_ROUTES if key == "mednext" else []
+        attn_routes = ATTN_PATH_ROUTES if key is False else []
+        want_routes = {"dw_conv3": dw_routes, "dw_conv3_wgrad": dw_routes,
+                       "window_attention": attn_routes, "window_attention_backward": attn_routes}
         peak = torch.cuda.max_memory_allocated()
         hist = trainer.history
         losses = [r["loss"] for r in hist]
@@ -808,11 +936,10 @@ def phase_train(work):
             f"{res['warm_ms_per_step']:.2f} ms/step, {res['warm_vol_per_s']:.3f} vol/s, peak "
             f"{peak / 2 ** 30:.2f} GiB, step ms {res['step_ms']}, losses {losses}, launches "
             f"{launches}, per step "
-            f"{res['launches_per_step']}, depthwise routes {routes}")
+            f"{res['launches_per_step']}, routes {routes}")
         want = TRAIN_STEP[key]
-        if routes != {"dw_conv3": want_routes, "dw_conv3_wgrad": want_routes}:
-            raise AssertionError(f"train {name}: depthwise routes {routes} (want "
-                                 f"{want_routes} for both kernels)")
+        if routes != want_routes:
+            raise AssertionError(f"train {name}: routes {routes} (want {want_routes})")
         if ((len(hist), trainer.step) != want_steps
                 or not all(np.isfinite(v) and not r["skipped"] for v, r in zip(losses, hist))
                 or any(r["launches"] != want for r in hist)
@@ -829,7 +956,6 @@ def phase_serve(name, model_cpu, work):
     from micformer_tpu_torch.cli import serve
     from micformer_tpu_torch.data.nifti import read_nifti
     from micformer_tpu_torch.kernels import LAUNCHES, reset_launches
-    from micformer_tpu_torch.kernels.dw_conv3 import ROUTES, reset_routes
 
     weights = os.path.join(work, f"{name}_bf16.pt")
     torch.save({k: v.bfloat16() for k, v in model_cpu.state_dict().items()}, weights)
@@ -857,13 +983,15 @@ def phase_serve(name, model_cpu, work):
     names = [f"vol{i}" for i in range(3)]
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    reset_routes()
+    reset_all_routes()
     t0 = time.perf_counter()
     lat, out = serve_dir("in", names)
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
-    routes = path_routes(ROUTES)
-    want_routes = {"dw_conv3": PATH_ROUTES if name == "mednext" else [], "dw_conv3_wgrad": []}
+    routes = all_routes()
+    want_routes = {"dw_conv3": PATH_ROUTES if name == "mednext" else [], "dw_conv3_wgrad": [],
+                   "window_attention": ATTN_PATH_ROUTES if name == "micformer" else [],
+                   "window_attention_backward": []}
     peak = torch.cuda.max_memory_allocated()
 
     per_request = []
@@ -882,12 +1010,12 @@ def phase_serve(name, model_cpu, work):
     log(f"serve: {name} {len(lat)} warm volumes 2x160³ bf16 roi 128 sw_batch 4: p50 "
         f"{res['p50_s']:.4f} s, {res['vol_per_s']:.3f} vol/s, latencies {lat}, "
         f"cold first request {cold:.4f} s, peak {peak / 2 ** 30:.2f} GiB, "
-        f"launches {launches}, per request {per_request}, depthwise routes {routes}")
+        f"launches {launches}, per request {per_request}, routes {routes}")
     if (len(lat) != 3 or per_request != [want] * 3
             or launches != {k: 3 * n for k, n in want.items()} or routes != want_routes):
         raise AssertionError(f"serve {name}: {len(lat)} requests, launches {launches}, "
                              f"per request {per_request} (want 3 requests of {want}), "
-                             f"depthwise routes {routes} (want {want_routes})")
+                             f"routes {routes} (want {want_routes})")
     return res
 
 
@@ -896,6 +1024,8 @@ def main():
     phase_build()
     attn = phase_attention_kernel()
     attn_bwd = phase_attention_backward_kernel()
+    attn_pass_sums(attn, attn_bwd)
+    phase_attention_graph()
     fused_fwd, fused_bwd = phase_fused_kernel()
     dw = phase_dw_kernel()
     dx, wgrad = phase_dw_backward_kernel()

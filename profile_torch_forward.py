@@ -19,7 +19,10 @@ are split by order into the forward's and the backward's dx (the first
 half of a step's K3 launches run before its backward starts). Each mode
 prints the device time per forward or step grouped by kind of kernel (with
 the hand-written kernels' shares), the kernel count, the top kernels, and
-the share of the wall time the device was busy.
+the share of the wall time the device was busy. For MicFormer it also splits
+K1's and its backward's 96 launches a forward or step by stage, in launch
+order (K1_STAGE_ORDER; the backward runs it in reverse), and prints each
+stage's mean time a launch.
 """
 
 from __future__ import annotations
@@ -36,11 +39,15 @@ BATCH, ROI, REPS = 4, 128, 3   # the serving chunk: sw_batch 4, roi 128³
 MODELS = ("micformer", "mednext")
 K3 = "K3 depthwise conv"
 K3_DX = "K3 as dx (backward)"
+K1, K1_BWD = "K1 window attention", "K1/K2 attention backward"
+# K1 launches of one MicFormer forward in launch order, as (stage, launches):
+# the encoder runs stages 0-3, then the decoder 2-0, 96 in all
+K1_STAGE_ORDER = [(0, 8), (1, 8), (2, 24), (3, 16), (2, 24), (1, 8), (0, 8)]
 # kernel-name fragments -> group, first match wins
-GROUPS = [("attention_backward", "K1/K2 attention backward"),
+GROUPS = [("attention_backward", K1_BWD),
           ("dw_conv3_wgrad", "K3 weight gradient (wgrad)"),
           ("fused_window_attention", "K2 fused window attention"),
-          ("window_attention", "K1 window attention"),
+          ("window_attention", K1),
           ("dw_conv3", K3),
           ("grid_sampler", "warp (grid_sample)"),
           ("layer_norm", "layer norm"), ("gelu", "gelu"),
@@ -52,6 +59,28 @@ GROUPS = [("attention_backward", "K1/K2 attention backward"),
           ("cutlass", "matmul (cuBLAS)"),
           ("copy", "copies / layout"), ("cat", "copies / layout"),
           ("elementwise", "elementwise"), ("reduce", "reductions")]
+
+
+def k1_stages(kernels, groups) -> list[str]:
+    """Mean device time a launch of K1 and of its backward at each stage,
+    the launches of each unit split by start order (K1_STAGE_ORDER, reversed
+    for the backward); a group whose launches are not 96 a unit is skipped."""
+    lines = []
+    for group, order in ((K1, K1_STAGE_ORDER), (K1_BWD, K1_STAGE_ORDER[::-1])):
+        launches = sorted((e for e in kernels if groups[id(e)] == group),
+                          key=lambda e: e.time_range.start)
+        stage_of = [s for s, n in order for _ in range(n)]
+        per_unit = len(stage_of)
+        if not launches or len(launches) != REPS * per_unit:
+            continue
+        us = [[] for _ in range(4)]
+        for i, e in enumerate(launches):
+            us[stage_of[i % per_unit]].append(e.time_range.elapsed_us())
+        lines.append(f"{group} by stage (us a launch, mean [min, max]; launches a unit): "
+                     + "; ".join(f"stage {s} {sum(u) / len(u):.2f} [{min(u):.2f}, "
+                                 f"{max(u):.2f}] x{len(u) // REPS}"
+                                 for s, u in enumerate(us)))
+    return lines
 
 
 def group_of(name: str) -> str:
@@ -110,6 +139,7 @@ def profile(run, what: str, unit: str, k3_forward_per_unit: int | None = None) -
              f"{len(kernels) // REPS} kernels/{unit}", f"by group (ms/{unit}, share):"]
     for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
         lines.append(f"  {g:26s} {us / REPS / 1e3:9.3f}  {100 * us / total:5.1f} %")
+    lines += k1_stages(kernels, groups)
     lines.append(f"top kernels (ms/{unit}):")
     for n, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         lines.append(f"  {us / REPS / 1e3:9.3f}  {n[:110]}")

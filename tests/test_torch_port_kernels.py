@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions, on the card:
-window attention (K1) and its backward, the fused window attention (K2) and
+window attention (K1) and its backward on each of their two routes (mma,
+ffma), the fused window attention (K2) and
 its backward, and the depthwise k³ conv (K3) and its backward (dx through
 K3, dw and db through the weight-gradient kernel), on each of their three
 staging routes (tma, volume, cp_async).
@@ -12,13 +13,14 @@ that has only the port's dependencies:
 Without a card its tests skip.
 """
 
+import itertools
 import warnings
 
 import numpy as np
 import pytest
 import torch
 
-from micformer_tpu_torch.kernels import LAUNCHES
+from micformer_tpu_torch.kernels import LAUNCHES, _build
 from micformer_tpu_torch.kernels.dw_conv3 import (
     _DTYPE_CODES, ROUTE_NAMES, ROUTES, _dw_route, _forward, _wgrad, _wgrad_fns,
     _wgrad_plan, _wgrad_scratch_size, dw_conv3, dw_conv3_backward,
@@ -29,8 +31,10 @@ from micformer_tpu_torch.kernels.fused_window_attention import (
     fused_window_attention_backward_reference, fused_window_attention_reference,
 )
 from micformer_tpu_torch.kernels.window_attention import (
-    window_attention, window_attention_backward, window_attention_backward_reference,
-    window_attention_reference,
+    DTYPE_CODES as ATTN_DTYPE_CODES, ROUTE_NAMES as ATTN_ROUTE_NAMES, ROUTES as ATTN_ROUTES,
+    _aligned, _attn_plan, _attn_route, _attn_smem, _backward as _attn_backward,
+    _forward as _attn_forward, _sms, window_attention,
+    window_attention_backward, window_attention_backward_reference, window_attention_reference,
 )
 
 # f32: sums of at most 32 f32 terms in another order; bf16: one rounding of
@@ -211,6 +215,148 @@ def test_window_attention_autograd_on_card(cuda_device):
     ref = window_attention_backward_reference(q.detach(), k.detach(), v.detach(), g)
     for t, r in zip((q, k, v), ref):
         torch.testing.assert_close(t.grad, r, **BWD_TOL[torch.float32])
+
+
+# (N, T, h, d): the four stages of a b4 serving forward and of a b1 training
+# step at 128³, and a ragged window count
+ATTN_PATH = [(16384, 8, 3, 16), (2048, 8, 6, 16), (256, 8, 12, 16), (32, 8, 24, 16),
+             (4096, 8, 3, 16), (512, 8, 6, 16), (64, 8, 12, 16), (8, 8, 24, 16),
+             (1000, 8, 3, 16)]
+
+
+def _attn_routes_counted(kernel, route, before, n=1):
+    return ATTN_ROUTES[kernel][route] == before[kernel][route] + n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,T,h,d", ATTN_PATH)
+def test_window_attention_routes_match_reference_on_card(cuda_device, N, T, h, d):
+    """K1 and its backward on every route that takes the inputs (bf16: mma
+    and ffma; f32: ffma), in the dense, self and cross layouts, against the
+    plain versions; where both routes apply they agree; each launch is
+    counted on its route."""
+    for dt in (torch.float32, torch.bfloat16):
+        routes = ("mma", "ffma") if dt == torch.bfloat16 else ("ffma",)
+        gen = torch.Generator(device=cuda_device).manual_seed(N + h)
+        for name, (q, k, v) in _layouts(cuda_device, dt, N, T, h, d, N + h).items():
+            g = torch.randn(q.shape, generator=gen, device=cuda_device).to(dt)
+            ref = window_attention_reference(q, k, v).float()
+            ref_grads = window_attention_backward_reference(q, k, v, g)
+            got = {}
+            for route in routes:
+                before = {kern: dict(c) for kern, c in ATTN_ROUTES.items()}
+                out = _attn_forward(q, k, v, None, route=route)
+                grads = _attn_backward(q, k, v, g, None, route=route)
+                torch.cuda.synchronize()
+                assert _attn_routes_counted("window_attention", route, before)
+                assert _attn_routes_counted("window_attention_backward", route, before)
+                assert (out.float() - ref).abs().max().item() <= ATOL[dt], (name, dt, route)
+                for a, b in zip(grads, ref_grads):
+                    torch.testing.assert_close(a.float(), b.float(), **BWD_TOL[dt],
+                                               msg=f"{name} {dt} {route}")
+                got[route] = (out, *grads)
+            if len(got) == 2:
+                for a, b in zip(got["mma"], got["ffma"]):
+                    torch.testing.assert_close(a.float(), b.float(), **BWD_TOL[dt],
+                                               msg=f"{name}: mma against ffma")
+
+
+def _offset(t, offset):
+    """t's values in a fresh tensor `offset` elements into its storage."""
+    out = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)[offset:]
+    return out.view(t.shape).copy_(t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,Tq,Tk,h,d", [(300, 8, 16, 2, 16), (77, 16, 4, 3, 32),
+                                         (1000, 4, 8, 4, 8), (13, 8, 8, 24, 64)])
+def test_window_attention_uneven_lengths_and_misaligned_rows_on_card(cuda_device, N, Tq, Tk,
+                                                                     h, d):
+    """Tq != Tk and ragged N on the ffma route (and on mma where Tq = Tk =
+    8), forward and backward; the backward also with every operand one
+    element off 16-byte alignment (ffma with element staging)."""
+    rng = np.random.default_rng(N)
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.from_numpy(a).to(cuda_device, dt) for a in _qkv(N, N, Tq, Tk, h, d))
+        g = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32)).to(cuda_device, dt)
+        out = window_attention(q, k, v)
+        torch.cuda.synchronize()
+        ref = window_attention_reference(q, k, v)
+        assert (out.float() - ref.float()).abs().max().item() <= ATOL[dt]
+        ref_grads = window_attention_backward_reference(q, k, v, g)
+        shifted = [_offset(t, 1) for t in (q, k, v, g)]
+        assert not _aligned(*shifted)
+        for args in ((q, k, v, g), shifted):
+            before = {kern: dict(c) for kern, c in ATTN_ROUTES.items()}
+            grads = window_attention_backward(*args)
+            torch.cuda.synchronize()
+            if args is shifted:
+                assert _attn_routes_counted("window_attention_backward", "ffma", before)
+            for a, b in zip(grads, ref_grads):
+                torch.testing.assert_close(a.float(), b.float(), **BWD_TOL[dt], msg=f"{dt}")
+
+
+@pytest.mark.cuda
+def test_window_attention_refuses_routes_the_inputs_cannot_take_on_card(cuda_device):
+    """The mma route for f32, T != 8, Tq != Tk, d = 8 or misaligned operands
+    fails in the C entry and raises; nothing is counted and nothing falls
+    back. An unknown route raises before any launch."""
+    def rand(N, T, h, d, dt):
+        return torch.randn(N, T, h, d, device=cuda_device).to(dt)
+
+    bf16 = torch.bfloat16
+    cases = [(rand(64, 8, 3, 16, torch.float32),) * 3, (rand(64, 4, 3, 16, bf16),) * 3,
+             (rand(64, 8, 3, 8, bf16),) * 3,
+             (rand(64, 8, 3, 16, bf16), rand(64, 16, 3, 16, bf16), rand(64, 16, 3, 16, bf16))]
+    before = dict(LAUNCHES), {kern: dict(c) for kern, c in ATTN_ROUTES.items()}
+    for q, k, v in cases:
+        with pytest.raises(RuntimeError):
+            _attn_forward(q, k, v, None, route="mma")
+        with pytest.raises(RuntimeError):
+            _attn_backward(q, k, v, torch.ones_like(q), None, route="mma")
+    q = _offset(rand(64, 8, 3, 16, bf16), 1)
+    with pytest.raises(RuntimeError):
+        _attn_backward(q, q, q, q, None, route="mma")
+    with pytest.raises(ValueError):
+        _attn_forward(*cases[1], None, route="wgmma")
+    assert dict(LAUNCHES) == before[0]
+    assert {kern: dict(c) for kern, c in ATTN_ROUTES.items()} == before[1]
+
+
+@pytest.mark.cuda
+def test_window_attention_plans_take_the_shared_memory_the_kernels_count_on_card(cuda_device):
+    """`_attn_smem`, by which `_attn_plan` sizes a tile, equals what the C
+    entries launch with (their smem queries), for the plans of every path
+    stage and contract corner on both routes."""
+    fwd = _build.load("window_attention").window_attention_forward_smem
+    bwd = _build.load("window_attention_backward").window_attention_backward_smem
+    shapes = [(N, T, T, h, d) for N, T, h, d in ATTN_PATH] + [
+        (300, 8, 16, 2, 16), (77, 16, 4, 3, 32), (1000, 4, 8, 4, 8), (13, 8, 8, 24, 64),
+        (300, 16, 16, 24, 64)]
+    for (N, Tq, Tk, h, d), dt, backward, aligned in itertools.product(
+            shapes, (torch.float32, torch.bfloat16), (False, True), (False, True)):
+        route = _attn_route(Tq, Tk, d, dt, aligned)
+        W, Hg, warps = _attn_plan(N, Tq, Tk, h, d, dt, route, backward, _sms(cuda_device))
+        want = _attn_smem(W, Hg, Tq, Tk, d, dt, route, backward, warps)
+        code = ATTN_DTYPE_CODES[dt]
+        got = (bwd(W, Hg, warps, Tq, Tk, d, code, ATTN_ROUTE_NAMES.index(route))
+               if backward else fwd(W, Hg, Tq, Tk, d, code))
+        assert got == want, (N, Tq, Tk, h, d, dt, route, backward)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,T,h,d", [(4096, 8, 3, 16), (8, 8, 24, 16), (300, 4, 2, 8),
+                                     (64, 16, 5, 32)])
+def test_window_attention_backward_is_bitwise_reproducible_on_card(cuda_device, N, T, h, d):
+    """dq, dk and dv have no atomics and a fixed summation order: two calls
+    on the same inputs agree bit for bit, on both routes."""
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = _layouts(cuda_device, dt, N, T, h, d, N)["self"]
+        g = torch.randn(q.shape, device=cuda_device).to(dt)
+        first = window_attention_backward(q, k, v, g)
+        second = window_attention_backward(q, k, v, g)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
