@@ -20,13 +20,16 @@ Phases; any error in any of them fails the run (non-zero exit, no result line):
                kv projection); K1's backward at the four training stage shapes
                (b1, 128³) in the self and cross layouts; each K1 row names the
                route its checked launch counted in the wrapper's ROUTES (mma
-               in bf16, ffma in f32) and the time_ms of one device copy that moves the same bytes, and the
-               two are summed over one pass (the b4 forward's and the b1
+               in bf16, ffma in f32) and the time_ms of one device copy that
+               moves the same bytes; K2 fused window attention, forward and
+               backward, on the [N, h, T, d] views of the training stage
+               shapes (self and cross layouts) and of the serving ones (self),
+               and at its contract's corners (T 4-32, d 8-128, tails), each
+               row naming its route as K1's do; the rows of K1, K2 and their
+               backwards summed over one pass (the b4 forward's and the b1
                step's 16/16/48/16 launches at the four stages); then K1 and
-               its backward captured once in a CUDA graph, replayed and held
-               bitwise against their eager results; K2 fused window attention,
-               forward and backward, on the [N, h, T, d] views of the same
-               layouts and at its contract's corners (T 4-32, d 8-128, tails);
+               its backward, and K2 and its backward, captured once in a CUDA
+               graph, replayed and held bitwise against their eager results;
                K3 depthwise k³ conv at MedNeXt-S's five stage shapes and two
                ragged ones, with the bias the path adds (each row names the
                staging route `_dw_route` chose: tma at 128³-32³, volume at
@@ -61,7 +64,8 @@ Phases; any error in any of them fails the run (non-zero exit, no result line):
                the nnU-Net preset (deep supervision, dice_ce, the nnunet
                augmentation, SGD-Nesterov, clipping 12); every step 36 K3 and
                18 wgrad launches, on the tma and volume routes only; K1 and its
-               backward on the mma route only. Launch counts, routes and peak
+               backward (K2 and its backward in the fused epoch) on the mma
+               route only. Launch counts, routes and peak
                memory are reset just before each run and read just after.
   7. lines   - a {"kernels": [...]} line, then the {"ok": true, ...} line last.
 """
@@ -103,7 +107,7 @@ KERNELS = {
     },
     "fused_window_attention": {
         "route": "cuda",
-        "source": "micformer_tpu_torch/csrc/fused_window_attention.cu",
+        "source": "micformer_tpu_torch/csrc/window_attention.cu",
         "replaces": "micformer_tpu/ops/pallas/window_attention.py:69",
     },
     "fused_window_attention_backward": {
@@ -199,13 +203,14 @@ def path_routes(routes):
 
 # a path at roi 128 (or 64) runs the depthwise kernels on the tma route down
 # to 32³ and the volume route at 16³ and 8³, never on cp_async; the bf16
-# MicFormer paths run both K1 kernels on the mma route
+# MicFormer paths run both K1 kernels (or with --fused-attention both K2
+# kernels) on the mma route
 PATH_ROUTES = ["tma", "volume"]
 ATTN_PATH_ROUTES = ["mma"]
 
 
 def all_routes():
-    """The routes a run used, per K3-family and K1 kernel."""
+    """The routes a run used, per K3-family and attention (K1, K2) kernel."""
     from micformer_tpu_torch.kernels.dw_conv3 import ROUTES
     from micformer_tpu_torch.kernels.window_attention import ROUTES as ATTN_ROUTES
 
@@ -330,7 +335,7 @@ def sass_report(libs):
             hmma_all = sum(o.startswith("HMMA") for _, o, _ in insns)
             loop = "no loop"
             if best:
-                top = sorted(set(best[2]), key=best[2].count, reverse=True)[:8]
+                top = sorted(set(best[2]), key=lambda o: (-best[2].count(o), o))[:8]
                 loop = (f"loop {best[0]} instructions, {best[1]} FFMA "
                         f"({100.0 * best[1] / max(best[0], 1):.1f} %) ["
                         + " ".join(f"{o} {best[2].count(o)}" for o in top) + "]")
@@ -470,33 +475,45 @@ def phase_attention_backward_kernel():
     return rows
 
 
-def attn_pass_sums(fwd_rows, bwd_rows):
-    """Kernel, library and bound time of one MicFormer pass of each K1
-    kernel, q/k/v sliced from the fused qkv projection: the forward's rows at
-    the serving stage shapes (a b4 forward) and the backward's at the
-    training ones (a b1 step), each times its launches (ATTN_STAGE_LAUNCHES)."""
+def attn_pass_sums(fwd_rows, bwd_rows, fused_fwd_rows, fused_bwd_rows):
+    """Kernel, library and bound time of one MicFormer pass of each attention
+    kernel, q/k/v sliced from the fused qkv projection (self layout; K2 on
+    their [N, h, T, d] views): K1's and K2's rows at the serving stage shapes
+    (a b4 forward) and K2's, K1-bwd's and K2-bwd's at the training ones (a
+    b1 step), each times its launches (ATTN_STAGE_LAUNCHES)."""
+    def k2(shapes):
+        return [(N, h, T, d) for N, T, h, d in shapes]
+
     sums = {}
-    for name, rows, shapes in (("window_attention (b4 forward)", fwd_rows, ATTN_SHAPES),
-                               ("window_attention_backward (b1 step)", bwd_rows, TRAIN_SHAPES)):
+    for name, rows, shapes in (
+            ("window_attention (b4 forward)", fwd_rows, ATTN_SHAPES),
+            ("fused_window_attention (b4 forward)", fused_fwd_rows, k2(ATTN_SHAPES[:4])),
+            ("fused_window_attention (b1 step)", fused_fwd_rows, k2(TRAIN_SHAPES)),
+            ("window_attention_backward (b1 step)", bwd_rows, TRAIN_SHAPES),
+            ("fused_window_attention_backward (b1 step)", fused_bwd_rows, k2(TRAIN_SHAPES))):
         for dt in ("float32", "bfloat16"):
             sel = [next(r for r in rows if r["shape"] == list(shape) and r["dtype"] == dt
                         and r["layout"] == "self") for shape in shapes[:4]]
             s = {key: sum(n * r[key] for n, r in zip(ATTN_STAGE_LAUNCHES, sel))
-                 for key in ("ms", "library_ms", "copy_ms", "bound_ms")}
+                 for key in ("ms", "library_ms", "copy_ms", "bound_ms") if key in sel[0]}
             sums[f"{name} {dt}"] = s
+            copies = f"copies {1e3 * s['copy_ms']:.1f} us, " if "copy_ms" in s else ""
             log(f"pass sum {name} {dt}: kernel {1e3 * s['ms']:.1f} us, sdpa "
-                f"{1e3 * s['library_ms']:.1f} us, copies {1e3 * s['copy_ms']:.1f} us, "
-                f"bound {1e3 * s['bound_ms']:.1f} us "
+                f"{1e3 * s['library_ms']:.1f} us, {copies}bound {1e3 * s['bound_ms']:.1f} us "
                 f"({sum(ATTN_STAGE_LAUNCHES)} launches; stages "
                 + ", ".join(f"{1e3 * r['ms']:.2f}" for r in sel) + " us)")
     return sums
 
 
 def phase_attention_graph():
-    """K1 and its backward captured once in a CUDA graph on static inputs (the
-    training stage-0 shape, self layout, f32 and bf16), replayed, and held
-    bitwise against the eager results: the wrappers and C entries allocate
-    nothing and never synchronise inside the capture."""
+    """K1 and its backward, and K2 and its backward, each pair captured once
+    in a CUDA graph on static inputs (the training stage-0 shape, self layout,
+    f32 and bf16; K2 on the [N, h, T, d] views), replayed, and held bitwise
+    against the eager results: the wrappers and C entries allocate nothing
+    and never synchronise inside the capture."""
+    from micformer_tpu_torch.kernels.fused_window_attention import (
+        fused_window_attention, fused_window_attention_backward,
+    )
     from micformer_tpu_torch.kernels.window_attention import (
         window_attention, window_attention_backward,
     )
@@ -504,12 +521,17 @@ def phase_attention_graph():
     gen = torch.Generator(device="cuda").manual_seed(6)
     N, T, h, d = TRAIN_SHAPES[0]
     res = {}
-    for dt in (torch.float32, torch.bfloat16):
+    for (name, fwd, bwd), dt in itertools.product(
+            (("window_attention", window_attention, window_attention_backward),
+             ("fused_window_attention", fused_window_attention,
+              fused_window_attention_backward)), (torch.float32, torch.bfloat16)):
         q, k, v = attn_inputs(gen, "self", N, T, h, d, dt)
         g = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
+        if name == "fused_window_attention":
+            q, k, v, g = (t.transpose(1, 2) for t in (q, k, v, g))
 
         def both():
-            return (window_attention(q, k, v), *window_attention_backward(q, k, v, g))
+            return (fwd(q, k, v), *bwd(q, k, v, g))
 
         eager = both()
         side = torch.cuda.Stream()
@@ -525,20 +547,21 @@ def phase_attention_graph():
         graph.replay()
         torch.cuda.synchronize()
         same = [torch.equal(a, b) for a, b in zip(static, eager)]
-        log(f"graph: window_attention and its backward {[N, T, h, d]} self "
+        log(f"graph: {name} and its backward {list(q.shape)} self "
             f"{str(dt).replace('torch.', '')}: replay equals eager bitwise (out, dq, dk, dv) "
             f"{same}")
         if not all(same):
-            raise AssertionError(f"graph replay of K1 differs from eager: {same}")
-        res[str(dt)] = same
+            raise AssertionError(f"graph replay of {name} differs from eager: {same}")
+        res[f"{name} {dt}"] = same
         del graph, static, eager
     return res
 
 
 def phase_fused_kernel():
-    """K2 forward and backward on the [N, h, T, d] views the path hands it
-    (the training stage shapes, self and cross layouts) and at the corners of
-    its contract (dense)."""
+    """K2 forward and backward on the [N, h, T, d] views the paths hand it
+    (the training stage shapes, self and cross layouts; the serving stage
+    shapes, self layout) and at the corners of its contract (dense); each
+    row names the route its checked launch counted in ROUTES."""
     from micformer_tpu_torch.kernels.fused_window_attention import (
         fused_window_attention, fused_window_attention_backward,
         fused_window_attention_backward_reference, fused_window_attention_reference,
@@ -546,33 +569,34 @@ def phase_fused_kernel():
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     cases = ([(s, lay) for s in TRAIN_SHAPES for lay in ("self", "cross")]
+             + [(s, "self") for s in ATTN_SHAPES[:4]]
              + [(s, "contiguous") for s in FUSED_CORNERS])
     fwd, bwd = [], []
     for ((N, T, h, d), layout), dt in itertools.product(cases, (torch.float32, torch.bfloat16)):
         q, k, v = (t.transpose(1, 2) for t in attn_inputs(gen, layout, N, T, h, d, dt))
         g = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
-        got = fused_window_attention(q, k, v)
-        torch.cuda.synchronize()
+        got, f_route = routed("fused_window_attention", lambda: fused_window_attention(q, k, v))
         err = (got.float() - fused_window_attention_reference(q, k, v).float()).abs().max().item()
         if not (err <= ATTN_ATOL[dt]):
             raise AssertionError(f"fused_window_attention {(N, h, T, d)} {layout} {dt}: "
                                  f"max err {err} > {ATTN_ATOL[dt]}")
-        grads = fused_window_attention_backward(q, k, v, g)
-        torch.cuda.synchronize()
+        grads, b_route = routed("fused_window_attention_backward",
+                                lambda: fused_window_attention_backward(q, k, v, g))
         berr = check_grads(f"fused_window_attention_backward {(N, h, T, d)} {layout} {dt}",
                            grads, fused_window_attention_backward_reference(q, k, v, g), dt)
+        del got, grads
         dense = leaves(q, k, v)
         gd = g.contiguous()
         base = {"shape": [N, h, T, d], "layout": layout, "dtype": str(dt).replace("torch.", "")}
         ms, by = bound(4 * q.numel() * q.element_size(), N * h * (4 * T * T * d + 5 * T * T), dt)
-        f_row = {**base, "max_abs_err": err,
+        f_row = {**base, "max_abs_err": err, "route": f_route,
                  "ms": time_ms(lambda: fused_window_attention(q, k, v)),
                  "plain_ms": time_ms(lambda: fused_window_attention_reference(q, k, v)),
                  "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                      *(t.detach() for t in dense))),
                  "bound_ms": ms, "bound_by": by}
         ms, by = bound(7 * q.numel() * q.element_size(), N * h * (10 * T * T * d + 5 * T * T), dt)
-        b_row = {**base, "max_abs_err": berr,
+        b_row = {**base, "max_abs_err": berr, "route": b_route,
                  "ms": time_ms(lambda: fused_window_attention_backward(q, k, v, g)),
                  "plain_ms": time_ms(lambda: fused_window_attention_backward_reference(q, k, v, g)),
                  "library_ms": time_ms(lambda: sdpa_backward(*dense, gd)),
@@ -581,7 +605,7 @@ def phase_fused_kernel():
         bwd.append(b_row)
         for name, r in (("fused_window_attention", f_row),
                         ("fused_window_attention_backward", b_row)):
-            log(f"kernel {name} {r['shape']} {layout} {r['dtype']}: err "
+            log(f"kernel {name} {r['shape']} {layout} {r['dtype']} {r['route']}: err "
                 f"{r['max_abs_err']:.3g}, kernel {1e3 * r['ms']:.2f} us, plain "
                 f"{1e3 * r['plain_ms']:.2f} us, sdpa {1e3 * r['library_ms']:.2f} us, bound "
                 f"{1e3 * r['bound_ms']:.2f} us ({r['bound_by']})")
@@ -916,9 +940,12 @@ def phase_train(work):
         launches = dict(LAUNCHES)
         routes = all_routes()
         dw_routes = PATH_ROUTES if key == "mednext" else []
-        attn_routes = ATTN_PATH_ROUTES if key is False else []
+        k1_routes = ATTN_PATH_ROUTES if key is False else []
+        k2_routes = ATTN_PATH_ROUTES if key is True else []
         want_routes = {"dw_conv3": dw_routes, "dw_conv3_wgrad": dw_routes,
-                       "window_attention": attn_routes, "window_attention_backward": attn_routes}
+                       "window_attention": k1_routes, "window_attention_backward": k1_routes,
+                       "fused_window_attention": k2_routes,
+                       "fused_window_attention_backward": k2_routes}
         peak = torch.cuda.max_memory_allocated()
         hist = trainer.history
         losses = [r["loss"] for r in hist]
@@ -991,7 +1018,8 @@ def phase_serve(name, model_cpu, work):
     routes = all_routes()
     want_routes = {"dw_conv3": PATH_ROUTES if name == "mednext" else [], "dw_conv3_wgrad": [],
                    "window_attention": ATTN_PATH_ROUTES if name == "micformer" else [],
-                   "window_attention_backward": []}
+                   "window_attention_backward": [], "fused_window_attention": [],
+                   "fused_window_attention_backward": []}
     peak = torch.cuda.max_memory_allocated()
 
     per_request = []
@@ -1024,9 +1052,9 @@ def main():
     phase_build()
     attn = phase_attention_kernel()
     attn_bwd = phase_attention_backward_kernel()
-    attn_pass_sums(attn, attn_bwd)
-    phase_attention_graph()
     fused_fwd, fused_bwd = phase_fused_kernel()
+    attn_pass_sums(attn, attn_bwd, fused_fwd, fused_bwd)
+    phase_attention_graph()
     dw = phase_dw_kernel()
     dx, wgrad = phase_dw_backward_kernel()
     dw_pass_sums("dw_conv3 (b4 forward)", dw, DW_SHAPES)
@@ -1082,7 +1110,7 @@ def main():
                                      if n.startswith("mednext"))})]
     kernels = [{"name": name, **KERNELS[name], "launches": launches[name],
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
-                **{k: row[k] for k in timed + ("layout", "k") if k in row}}
+                **{k: row[k] for k in timed + ("layout", "k", "route") if k in row}}
                for name, row, rows, launches in lines]
     for kern in kernels:
         if not kern["launches"] > 0:

@@ -1,16 +1,22 @@
-// Window tiles in shared memory for the K1 kernels on Hopper (sm_90a): shared
-// by csrc/window_attention.cu (forward) and the `window_attention_backward`
-// entry of csrc/window_attention_backward.cu.
+// Window tiles in shared memory for the window-attention kernels on Hopper
+// (sm_90a): K1 (tiny-window attention, csrc/window_attention.cu) and K2
+// (fused window attention, the `fused_window_attention_forward` entry of the
+// same file), and both backwards (csrc/window_attention_backward.cu).
 //
 // A tile is W windows x Hg heads of every operand. Each (window, token) gives
-// one staged row of Hg * d elements, the heads h0 .. h0 + Hg - 1 side by side;
-// a staged row's pitch is its 16-byte chunks made odd, so that eight rows at
-// that pitch fall on eight different 16-byte bank groups (ldmatrix and
-// 16-byte reads without bank conflicts). Operands are addressed through
-// (window, token, head) element strides with a dense feature axis.
-//   - aligned (every base address and stride a multiple of 16 bytes): rows
-//     move as 16-byte cp.async copies, all of a tile's in flight together;
+// one staged row of Hg * D elements, the heads h0 .. h0 + Hg - 1 side by side
+// whatever their order in device memory; a staged row's pitch is its 16-byte
+// chunks made odd, so that eight rows at that pitch fall on eight different
+// 16-byte bank groups (ldmatrix and 16-byte reads without bank conflicts).
+// Operands are addressed through (window, token, head) element strides with a
+// dense feature axis, one (token, head) segment of d features at a time.
+//   - aligned (every base address and stride a multiple of 16 bytes, and d
+//     whole 16-byte chunks): segments move as 16-byte cp.async copies, all
+//     of a tile's in flight together;
 //   - otherwise: element by element, synchronously.
+// K1 takes d = D, one of its compiled widths. K2 takes any d <= 128 in the
+// next compiled width D >= d ("TAIL"): features d .. D - 1 are staged as
+// zeros, which add nothing to q k^T or g v^T, and are never stored.
 // The tile plan (W, Hg, warps) comes from the wrapper (`_attn_plan` in
 // kernels/window_attention.py), which sizes it by the same shared-memory
 // formulas (each library exports its own as a query, and a card test holds
@@ -25,9 +31,12 @@
 
 namespace attn {
 
-constexpr int kMaxT = 16;
+constexpr int kMaxT = 16;               // K1: Tq, Tk <= 16
+constexpr int kFusedMaxT = 32;          // K2: T <= 32 with 128 % T == 0
+constexpr int kFusedMaxD = 128;         // K2: d <= 128
 constexpr int kMaxWarps = 4;
 constexpr int kSmemLimit = 48 * 1024;   // dynamic shared memory without opting in
+constexpr int kSmemOptIn = 232448;      // the most a block may opt in to (227 KB)
 constexpr int kWarpTileBytes = 1024;    // backward mma route: 8 bf16 8x8 matrices a warp
 
 enum Route { kRouteMma = 0, kRouteFfma = 1 };
@@ -41,6 +50,12 @@ __host__ __device__ inline int64_t ceil_div(int64_t a, int64_t b) { return (a + 
 // Bytes between staged rows of hg * d elements of es bytes.
 __host__ __device__ inline int pitch_bytes(int hg, int d, int es) {
   return (((hg * d * es) / 16) | 1) * 16;
+}
+
+// K2's compiled feature width for d: the least of 8, 16, 32, 64, 128 that
+// holds d (`_fused_width` in kernels/fused_window_attention.py).
+__host__ __device__ inline int fused_width(int d) {
+  return d <= 8 ? 8 : d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : 128;
 }
 
 // The plan's tile grid: windows per tile W, heads per tile Hg, one block a
@@ -211,11 +226,13 @@ __device__ __forceinline__ Walk walk_for(int hg) {
 // dst + (w * rows_per_window + t) * pitch + hh * D (pitch in elements).
 // VEC: 16-byte cp.async copies from `start` (walk_for<T, D>(hg); the caller
 // commits and waits); else synchronous element copies. RPW:
-// rows_per_window when known at compile time, else 0.
-template <typename T, int D, bool VEC, int RPW = 0>
+// rows_per_window when known at compile time, else 0. TAIL: only the first
+// d features lie in src, the rest are staged as zeros (with VEC, d is whole
+// 16-byte chunks).
+template <typename T, int D, bool VEC, int RPW = 0, bool TAIL = false>
 __device__ __forceinline__ void stage_rows(T* dst, int pitch, const T* __restrict__ src,
                                            Layout l, TilePos tp, int rows_per_window, int hg,
-                                           Walk start) {
+                                           Walk start, int d = D) {
   const int rpw = RPW ? RPW : rows_per_window;
   const T* base = src + tp.n0 * l.n + tp.h0 * l.h;
   if constexpr (VEC) {
@@ -225,8 +242,11 @@ __device__ __forceinline__ void stage_rows(T* dst, int pitch, const T* __restric
     for (Walk it = start; it.row < rows; walk_next(it, kcr)) {
       const int w = it.row / rpw, t = it.row - w * rpw;
       const int hh = it.ch / kC, cc = it.ch % kC;
-      cp_async16(dst + it.row * pitch + it.ch * kE,
-                 base + w * l.n + t * l.t + hh * l.h + cc * kE);
+      T* to = dst + it.row * pitch + it.ch * kE;
+      if (TAIL && cc * kE >= d)
+        *reinterpret_cast<uint4*>(to) = make_uint4(0u, 0u, 0u, 0u);
+      else
+        cp_async16(to, base + w * l.n + t * l.t + hh * l.h + cc * kE);
     }
   } else {
     const int total = tp.nw * rpw * hg * D;
@@ -234,17 +254,18 @@ __device__ __forceinline__ void stage_rows(T* dst, int pitch, const T* __restric
       const int f = e % D, seg = e / D;
       const int hh = seg % hg, row = seg / hg;
       const int t = row % rpw, w = row / rpw;
-      dst[row * pitch + hh * D + f] = base[w * l.n + t * l.t + hh * l.h + f];
+      dst[row * pitch + hh * D + f] =
+          TAIL && f >= d ? from_float<T>(0.f) : base[w * l.n + t * l.t + hh * l.h + f];
     }
   }
 }
 
 // The reverse: staged rows of src (shared) to dst through its strides, as
-// 16-byte stores (VEC) or element stores.
-template <typename T, int D, bool VEC, int RPW = 0>
+// 16-byte stores (VEC) or element stores; TAIL: the first d features only.
+template <typename T, int D, bool VEC, int RPW = 0, bool TAIL = false>
 __device__ __forceinline__ void store_rows(T* __restrict__ dst, Layout l, const T* src,
                                            int pitch, TilePos tp, int rows_per_window, int hg,
-                                           Walk start) {
+                                           Walk start, int d = D) {
   const int rpw = RPW ? RPW : rows_per_window;
   T* base = dst + tp.n0 * l.n + tp.h0 * l.h;
   if constexpr (VEC) {
@@ -254,6 +275,7 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst, Layout l, const 
     for (Walk it = start; it.row < rows; walk_next(it, kcr)) {
       const int w = it.row / rpw, t = it.row - w * rpw;
       const int hh = it.ch / kC, cc = it.ch % kC;
+      if (TAIL && cc * kE >= d) continue;
       *reinterpret_cast<uint4*>(base + w * l.n + t * l.t + hh * l.h + cc * kE) =
           *reinterpret_cast<const uint4*>(src + it.row * pitch + it.ch * kE);
     }
@@ -261,6 +283,7 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst, Layout l, const 
     const int total = tp.nw * rpw * hg * D;
     for (int e = threadIdx.x; e < total; e += blockDim.x) {
       const int f = e % D, seg = e / D;
+      if (TAIL && f >= d) continue;
       const int hh = seg % hg, row = seg / hg;
       const int t = row % rpw, w = row / rpw;
       base[w * l.n + t * l.t + hh * l.h + f] = src[row * pitch + hh * D + f];

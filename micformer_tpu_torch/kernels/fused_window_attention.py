@@ -2,19 +2,31 @@
 and head.
 
 Counterpart of `micformer_tpu/ops/pallas/window_attention.py` (K2,
-`fused_window_attention` and its dispatch predicate `should_use_fused`). The
-forward kernel is `csrc/fused_window_attention.cu`; the backward is the
-entry `fused_window_attention_backward` of `csrc/window_attention_backward.cu`,
-the kernel of K1's gradient instantiated for T <= 32 and K2's strides. Their
-headers give the bounds and the designs. `fused_window_attention` is
-differentiable through a `torch.autograd.Function` whose forward and backward
-are the two kernels; when no gradient is asked for it calls the forward
-directly.
+`fused_window_attention` and its dispatch predicate `should_use_fused`). K2
+is an entry of K1's window-tile kernels: the forward is the entry
+`fused_window_attention_forward` of `csrc/window_attention.cu`, the backward
+the entry `fused_window_attention_backward` of
+`csrc/window_attention_backward.cu`, each launching its own kernel function
+(`fused_window_attention_kernel`, `fused_window_attention_backward_kernel`)
+around the device code K1's kernels run. Their headers give the bounds and
+the designs. `fused_window_attention` is differentiable through a
+`torch.autograd.Function` whose forward and backward are the two kernels;
+when no gradient is asked for it calls the forward directly.
+
+Both compute on one of K1's two routes, which `_fused_route` picks from the
+shapes, dtype and alignment alone: "mma" (bf16, T = 8, d a multiple of 16,
+every address and stride 16-byte aligned: every `--fused-attention` launch of
+MicFormer) or "ffma" (everything else of the contract). A d outside the
+compiled widths 8, 16, 32, 64, 128 is staged in the next one, its tail as
+zeros that are never stored. `_fused_plan` gives the tile plan, which the C
+entries check and launch one block a tile; each launch adds one to
+`ROUTES[kernel][route]` beside `LAUNCHES[kernel]`.
 
 For CUDA tensors the wrappers launch their kernels and raise on what a kernel
-does not take; for CPU tensors they compute `fused_window_attention_reference`
-and `fused_window_attention_backward_reference`, the plain PyTorch versions
-the kernels are held against.
+or a route does not take; for CPU tensors they compute
+`fused_window_attention_reference` and
+`fused_window_attention_backward_reference`, the plain PyTorch versions the
+kernels are held against.
 """
 
 from __future__ import annotations
@@ -26,12 +38,14 @@ import torch
 
 from micformer_tpu_torch.kernels import LAUNCHES, _build
 from micformer_tpu_torch.kernels.window_attention import (
-    DTYPE_CODES, launch_attention_backward,
+    _ELEMENT_BYTES, DTYPE_CODES, ROUTE_NAMES, ROUTES, _aligned, _attn_plan, _attn_smem, _sms,
+    launch_attention_backward,
 )
 
 BLOCK_ROWS = 128
 MAX_T = 32
 MAX_D = 128
+WIDTHS = (8, 16, 32, 64, 128)    # the compiled feature widths (attn::fused_width)
 
 
 def should_use_fused(T: int, d: int, bias, mask, device) -> bool:
@@ -43,6 +57,44 @@ def should_use_fused(T: int, d: int, bias, mask, device) -> bool:
     if T > MAX_T or d > MAX_D or BLOCK_ROWS % T != 0:
         return False
     return torch.device(device).type == "cuda"
+
+
+def _fused_width(d: int) -> int:
+    """The compiled feature width d is staged in: the least of WIDTHS that
+    holds it."""
+    return next(w for w in WIDTHS if w >= d)
+
+
+def _fused_route(T: int, d: int, dtype, aligned: bool) -> str:
+    """The route of both K2 kernels: "mma" for bf16 with T = 8, d a multiple
+    of 16 and every address and stride 16-byte aligned, else "ffma"."""
+    if dtype not in _ELEMENT_BYTES or not (
+            1 <= T <= MAX_T and BLOCK_ROWS % T == 0 and 1 <= d <= MAX_D):
+        raise ValueError(f"fused_window_attention: no route for T={T} d={d} {dtype}")
+    if dtype == torch.bfloat16 and T == 8 and d % 16 == 0 and aligned:
+        return "mma"
+    return "ffma"
+
+
+def _fused_aligned(d: int, *ts) -> bool:
+    """Whole 16-byte chunks of d features, and every address and window,
+    token and head stride a multiple of 16 bytes: staging by cp.async."""
+    return d * ts[0].element_size() % 16 == 0 and _aligned(*ts)
+
+
+def _fused_smem(W: int, Hg: int, T: int, d: int, dtype, route: str, backward: bool,
+                warps: int) -> int:
+    """Shared memory of a K2 block, as the C entries count it (their
+    `fused_window_attention_forward_smem` and
+    `fused_window_attention_backward_smem` queries)."""
+    return _attn_smem(W, Hg, T, T, _fused_width(d), dtype, route, backward, warps, fused=True)
+
+
+def _fused_plan(N: int, T: int, h: int, d: int, dtype, route: str, backward: bool,
+                sms: int) -> tuple[int, int, int]:
+    """The tile plan (W, Hg, warps) of a K2 kernel: `_attn_plan` at the
+    staged width, about 8 / T times K1's pairs a tile, one block a tile."""
+    return _attn_plan(N, T, T, h, _fused_width(d), dtype, route, backward, sms, fused=True)
 
 
 def fused_window_attention_reference(q, k, v, scale=None):
@@ -76,10 +128,10 @@ def fused_window_attention_backward_reference(q, k, v, g, scale=None):
 @functools.cache
 def _forward_fn():
     """The forward kernel's C entry point, with its signature set once."""
-    fn = _build.load("fused_window_attention").fused_window_attention_forward
+    fn = _build.load("window_attention").fused_window_attention_forward
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 3 \
-        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
-           ctypes.c_void_p]
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float] + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -120,7 +172,9 @@ def _empty_like_layout(x):
     return torch.empty((N, h, T, d), dtype=x.dtype, device=x.device)
 
 
-def _forward(q, k, v, scale):
+def _forward(q, k, v, scale, route=None):
+    """The forward: the plain version for CPU tensors, else the kernel on
+    `route` (default `_fused_route`'s)."""
     if q.device.type == "cpu":
         return fused_window_attention_reference(q, k, v, scale)
     _check_card(q, k, v)
@@ -128,6 +182,8 @@ def _forward(q, k, v, scale):
     out = _empty_like_layout(q)
     if N * h == 0:
         return out
+    route = route or _fused_route(T, d, q.dtype, _fused_aligned(d, q, k, v, out))
+    plan = _fused_plan(N, T, h, d, q.dtype, route, False, _sms(q.device))
     s = d ** -0.5 if scale is None else float(scale)
     # each as (window, token, head) strides
     strides = [x.stride()[i] for x in (q, k, v, out) for i in (0, 2, 1)]
@@ -135,10 +191,12 @@ def _forward(q, k, v, scale):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _forward_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                             N, h, T, d, (ctypes.c_longlong * 12)(*strides), s,
-                            DTYPE_CODES[q.dtype], stream)
+                            DTYPE_CODES[q.dtype], ROUTE_NAMES.index(route), *plan, stream)
     if err != 0:
-        raise RuntimeError(f"fused_window_attention: kernel launch failed (cudaError {err})")
+        raise RuntimeError(f"fused_window_attention: kernel launch failed on route {route} "
+                           f"(cudaError {err})")
     LAUNCHES["fused_window_attention"] += 1
+    ROUTES["fused_window_attention"][route] += 1
     return out
 
 
@@ -148,6 +206,12 @@ def fused_window_attention_backward(q, k, v, g, scale=None):
     as `_empty_like_layout` of its input.
 
     CUDA tensors: the forward kernel's contract; anything else raises."""
+    return _backward(q, k, v, g, scale)
+
+
+def _backward(q, k, v, g, scale, route=None):
+    """The backward: the plain version for CPU tensors, else the kernel on
+    `route` (default `_fused_route`'s)."""
     _check(q, k, v)
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
         raise ValueError(f"fused_window_attention_backward: g {tuple(g.shape)} "
@@ -158,13 +222,19 @@ def fused_window_attention_backward(q, k, v, g, scale=None):
         g = g.contiguous()
     _check_card(q, k, v, g)
     dq, dk, dv = (_empty_like_layout(x) for x in (q, k, v))
-    if q.shape[0] * q.shape[1] == 0:
+    N, h, T, d = q.shape
+    if N * h == 0:
         return dq, dk, dv
-    s = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    ts = (q, k, v, g, dq, dk, dv)
+    route = route or _fused_route(T, d, q.dtype, _fused_aligned(d, *ts))
+    plan = _fused_plan(N, T, h, d, q.dtype, route, True, _sms(q.device))
+    s = d ** -0.5 if scale is None else float(scale)
     # the kernel reads [N, T, h, d] views: the transposes are free
     launch_attention_backward("fused_window_attention_backward",
-                              *(x.transpose(1, 2) for x in (q, k, v, g, dq, dk, dv)), s)
+                              *(x.transpose(1, 2) for x in ts), s,
+                              (ROUTE_NAMES.index(route), *plan))
     LAUNCHES["fused_window_attention_backward"] += 1
+    ROUTES["fused_window_attention_backward"][route] += 1
     return dq, dk, dv
 
 

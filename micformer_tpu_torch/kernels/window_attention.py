@@ -20,7 +20,10 @@ d a multiple of 16, every row 16-byte aligned: the MicFormer paths) or
 the tile plan, which the C entry points check and launch one block a tile;
 each launch adds one to `ROUTES[kernel][route]` beside `LAUNCHES[kernel]`. A route the inputs
 cannot take makes the launch fail and the wrapper raise; nothing falls back
-to the plain versions.
+to the plain versions. The fused window attention K2
+(`kernels/fused_window_attention.py`) runs the same tile kernels through
+entries of its own, planned by `_attn_plan(..., fused=True)` and counted in
+`ROUTES` too.
 """
 
 from __future__ import annotations
@@ -37,10 +40,13 @@ HEAD_DIMS = (8, 16, 32, 64)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 ROUTE_NAMES = ("mma", "ffma")                    # C route codes 0, 1
-# launches of each K1 kernel by route, beside LAUNCHES
+# launches of each kernel of the window-tile family (K1, K2 and their
+# backwards) by route, beside LAUNCHES
 ROUTES: dict[str, dict[str, int]] = {name: dict.fromkeys(ROUTE_NAMES, 0)
                                      for name in ("window_attention",
-                                                  "window_attention_backward")}
+                                                  "window_attention_backward",
+                                                  "fused_window_attention",
+                                                  "fused_window_attention_backward")}
 
 # a block has at most 4 warps and 48 KB of shared memory (csrc/attn_tile.cuh)
 # and takes one tile of about _PAIRS[backward] (window, head) pairs: on the
@@ -80,17 +86,19 @@ def _pitch_bytes(Hg: int, d: int, es: int) -> int:
 
 
 def _attn_smem(W: int, Hg: int, Tq: int, Tk: int, d: int, dtype, route: str,
-               backward: bool, warps: int) -> int:
+               backward: bool, warps: int, fused: bool = False) -> int:
     """Shared memory of a block, as the C entries count it (their
     `window_attention_forward_smem` and `window_attention_backward_smem`
-    queries; a card test holds them equal): the staged operands' rows (q, k,
-    v; the backward adds g), then the backward's per-warp tiles (mma) or f32
-    P and dS rows (ffma)."""
+    queries, and K2's; a card test holds them equal): the staged operands'
+    rows of d features (q, k, v; the backward adds g), then the backward's
+    per-warp tiles (mma) or f32 P and dS rows (ffma; K2's `fused` rows Tk
+    made odd floats apart)."""
     pitch = _pitch_bytes(Hg, d, _ELEMENT_BYTES[dtype])
     rows = W * (2 * Tq + 2 * Tk) if backward else W * (Tq + 2 * Tk)
     extra = 0
     if backward:
-        extra = warps * _WARP_TILE_BYTES if route == "mma" else W * Hg * Tq * Tk * 8
+        p_pitch = Tk | 1 if fused else Tk
+        extra = warps * _WARP_TILE_BYTES if route == "mma" else W * Hg * Tq * p_pitch * 8
     return rows * pitch + extra
 
 
@@ -109,25 +117,29 @@ def _attn_tiles(N: int, h: int, W: int, Hg: int) -> int:
 
 @functools.cache
 def _attn_plan(N: int, Tq: int, Tk: int, h: int, d: int, dtype, route: str,
-               backward: bool, sms: int) -> tuple[int, int, int]:
-    """The tile plan of a K1 kernel, as the C entries take it: (W, Hg,
-    warps). A tile is W windows x Hg heads (Hg divides h).
+               backward: bool, sms: int, fused: bool = False) -> tuple[int, int, int]:
+    """The tile plan of a kernel of the window-tile family, as the C entries
+    take it: (W, Hg, warps). A tile is W windows x Hg heads (Hg divides h).
 
     Hg starts at h (or the largest divisor whose one-window tile fits 48 KB
     of shared memory) and W at the windows that give about _PAIRS[backward]
     pairs a tile, within 48 KB; where that gives fewer tiles than the card's
     `sms` SMs, W falls to 1 and then Hg through the divisors of h until the
-    tiles cover the SMs (or Hg is 1)."""
+    tiles cover the SMs (or Hg is 1). `fused` (K2, T = Tq = Tk up to 32; d
+    the staged width): about _PAIRS[backward] * 8 / T pairs a tile, the
+    shared memory of `_attn_smem(..., fused=True)`; a single pair that needs
+    more than 48 KB is a tile of its own (its entry opts in)."""
     if route not in ROUTE_NAMES:
         raise ValueError(f"window_attention: unknown route {route!r}")
 
     def smem(W, Hg):
         return _attn_smem(W, Hg, Tq, Tk, d, dtype, route, backward,
-                          _attn_warps(W, Hg, Tq, Tk, route))
+                          _attn_warps(W, Hg, Tq, Tk, route), fused)
 
+    pairs = max(1, _PAIRS[backward] * 8 // Tq) if fused else _PAIRS[backward]
     divisors = [g for g in range(h, 0, -1) if h % g == 0]
     Hg = next((g for g in divisors if smem(1, g) <= _SMEM_BLOCK), 1)
-    W = max(1, min(N, _PAIRS[backward] // Hg))
+    W = max(1, min(N, pairs // Hg))
     while W > 1 and (smem(W, Hg) > _SMEM_BLOCK or _attn_tiles(N, h, W, Hg) < sms):
         W -= 1
     Hg = next(g for g in divisors if g <= Hg and (_attn_tiles(N, h, W, g) >= sms or g == 1))
@@ -183,23 +195,22 @@ def _forward_fn():
 @functools.cache
 def _backward_fn(entry: str):
     """A C entry point of the backward library: `window_attention_backward`
-    (K1; it takes a route and a tile plan after the dtype) or
-    `fused_window_attention_backward` (K2)."""
+    (K1) or `fused_window_attention_backward` (K2); each takes a route and a
+    tile plan after the dtype."""
     fn = getattr(_build.load("window_attention_backward"), entry)
-    plan = [ctypes.c_int] * 4 if entry == "window_attention_backward" else []
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 4 \
-        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int] + plan \
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float] + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def launch_attention_backward(entry: str, q, k, v, g, dq, dk, dv, scale: float,
-                              plan: tuple = ()):
+                              plan: tuple):
     """Launch a backward kernel on seven [N, T, h, d] views (q, g, dq with
     Tq tokens; k, v, dk, dv with Tk), each with a dense feature axis; the
-    window, token and head strides are free. `plan`: K1's route code and
-    tile plan, nothing for K2. Raises if the launch fails."""
+    window, token and head strides are free. `plan`: the route code and the
+    tile plan (W, Hg, warps). Raises if the launch fails."""
     N, Tq, h, d = q.shape
     strides = [s for t in (q, k, v, g, dq, dk, dv) for s in t.stride()[:3]]
     with torch.cuda.device(q.device):

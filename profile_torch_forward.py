@@ -4,6 +4,7 @@ one GPU.
 
     python3 profile_torch_forward.py                 # the served models' forwards
     python3 profile_torch_forward.py train           # one MicFormer training step
+    python3 profile_torch_forward.py train fused     # the same with fused attention (K2)
     python3 profile_torch_forward.py train mednext   # one MedNeXt-S training step
 
 Forward: full-width MicFormer and MedNeXt-S k3 (seeded random weights, bf16),
@@ -12,7 +13,9 @@ each on a [4, 2, 128³] input: one sw_batch chunk of the serving path (roi
 Train: full-width MicFormer through the port's Trainer (f32 parameters,
 bf16 autocast, Adam, the monai augmentation) on a [1, 2, 128³] batch with a
 uint8 label, as `cli/train.py --bf16` runs it; after two warm-up steps,
-torch.profiler records three. Train mednext: full-width MedNeXt-S k3 the
+torch.profiler records three. Train fused: the same step with
+`fused_attention=True` (`cli/train.py --fused-attention`), every attention
+through K2 and its backward. Train mednext: full-width MedNeXt-S k3 the
 same way, as the paper's config trains it (batch [2, 2, 128³], mdice, Adam
 at lr 1e-4, monai augmentation, bf16 autocast); K3's launches in each step
 are split by order into the forward's and the backward's dx (the first
@@ -20,9 +23,13 @@ half of a step's K3 launches run before its backward starts). Each mode
 prints the device time per forward or step grouped by kind of kernel (with
 the hand-written kernels' shares), the kernel count, the top kernels, and
 the share of the wall time the device was busy. For MicFormer it also splits
-K1's and its backward's 96 launches a forward or step by stage, in launch
-order (K1_STAGE_ORDER; the backward runs it in reverse), and prints each
-stage's mean time a launch.
+the 96 launches a forward or step of K1 and its backward (or K2 and its
+backward) by stage, in launch order (STAGE_ORDER; the backward runs it in
+reverse), and prints each stage's mean time a launch. Kernels are grouped by
+the names of their kernel functions: K2 and its backward run the device code
+of K1's, but through kernel functions of their own
+(`fused_window_attention_kernel`, `fused_window_attention_backward_kernel`),
+so no K2 launch counts as K1's.
 """
 
 from __future__ import annotations
@@ -39,14 +46,16 @@ BATCH, ROI, REPS = 4, 128, 3   # the serving chunk: sw_batch 4, roi 128³
 MODELS = ("micformer", "mednext")
 K3 = "K3 depthwise conv"
 K3_DX = "K3 as dx (backward)"
-K1, K1_BWD = "K1 window attention", "K1/K2 attention backward"
-# K1 launches of one MicFormer forward in launch order, as (stage, launches):
-# the encoder runs stages 0-3, then the decoder 2-0, 96 in all
-K1_STAGE_ORDER = [(0, 8), (1, 8), (2, 24), (3, 16), (2, 24), (1, 8), (0, 8)]
+K1, K1_BWD = "K1 window attention", "K1 attention backward"
+K2, K2_BWD = "K2 fused window attention", "K2 attention backward"
+# attention launches of one MicFormer forward in launch order, as (stage,
+# launches): the encoder runs stages 0-3, then the decoder 2-0, 96 in all
+STAGE_ORDER = [(0, 8), (1, 8), (2, 24), (3, 16), (2, 24), (1, 8), (0, 8)]
 # kernel-name fragments -> group, first match wins
-GROUPS = [("attention_backward", K1_BWD),
+GROUPS = [("fused_window_attention_backward", K2_BWD),
+          ("attention_backward", K1_BWD),
           ("dw_conv3_wgrad", "K3 weight gradient (wgrad)"),
-          ("fused_window_attention", "K2 fused window attention"),
+          ("fused_window_attention", K2),
           ("window_attention", K1),
           ("dw_conv3", K3),
           ("grid_sampler", "warp (grid_sample)"),
@@ -61,12 +70,14 @@ GROUPS = [("attention_backward", K1_BWD),
           ("elementwise", "elementwise"), ("reduce", "reductions")]
 
 
-def k1_stages(kernels, groups) -> list[str]:
-    """Mean device time a launch of K1 and of its backward at each stage,
-    the launches of each unit split by start order (K1_STAGE_ORDER, reversed
-    for the backward); a group whose launches are not 96 a unit is skipped."""
+def attn_stages(kernels, groups) -> list[str]:
+    """Mean device time a launch of K1, K2 and their backwards at each
+    stage, the launches of each unit split by start order (STAGE_ORDER,
+    reversed for the backwards); a group whose launches are not 96 a unit is
+    skipped."""
     lines = []
-    for group, order in ((K1, K1_STAGE_ORDER), (K1_BWD, K1_STAGE_ORDER[::-1])):
+    for group, order in ((K1, STAGE_ORDER), (K1_BWD, STAGE_ORDER[::-1]),
+                         (K2, STAGE_ORDER), (K2_BWD, STAGE_ORDER[::-1])):
         launches = sorted((e for e in kernels if groups[id(e)] == group),
                           key=lambda e: e.time_range.start)
         stage_of = [s for s, n in order for _ in range(n)]
@@ -139,7 +150,7 @@ def profile(run, what: str, unit: str, k3_forward_per_unit: int | None = None) -
              f"{len(kernels) // REPS} kernels/{unit}", f"by group (ms/{unit}, share):"]
     for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
         lines.append(f"  {g:26s} {us / REPS / 1e3:9.3f}  {100 * us / total:5.1f} %")
-    lines += k1_stages(kernels, groups)
+    lines += attn_stages(kernels, groups)
     lines.append(f"top kernels (ms/{unit}):")
     for n, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         lines.append(f"  {us / REPS / 1e3:9.3f}  {n[:110]}")
@@ -168,11 +179,13 @@ def profile_model(name: str) -> str:
     return profile(run, f"{name} bf16 forward, input [{BATCH}, 2, {ROI}³]", "forward")
 
 
-def profile_train(name: str = "micformer") -> str:
+def profile_train(name: str = "micformer", fused: bool = False) -> str:
     from micformer_tpu_torch import registry
     from micformer_tpu_torch.train.trainer import TrainConfig, Trainer
 
-    model = registry.build(name, device="cuda", generator=torch.Generator().manual_seed(0))
+    kwargs = {"fused_attention": True} if fused else {}
+    model = registry.build(name, device="cuda", generator=torch.Generator().manual_seed(0),
+                           **kwargs)
     batch = 2 if name == "mednext" else 1          # each model's published batch
     gen = torch.Generator().manual_seed(1)
     images = torch.rand((batch, 2) + (ROI,) * 3, generator=gen).half()
@@ -182,8 +195,8 @@ def profile_train(name: str = "micformer") -> str:
     with tempfile.TemporaryDirectory() as run_dir:
         trainer = Trainer(model, TrainConfig(bf16=True, run_dir=run_dir))
         report = profile(lambda: trainer.train_step(images, labels),
-                         f"{name} training step, bf16 autocast, batch [{batch}, 2, {ROI}³]",
-                         "step", k3_forward)
+                         f"{name} training step{' with fused attention' if fused else ''}, "
+                         f"bf16 autocast, batch [{batch}, 2, {ROI}³]", "step", k3_forward)
         steps = trainer.history[-REPS:]
         peak = torch.cuda.max_memory_allocated()
     return (report + f"\nsteps (host clock incl. profiler): "
@@ -198,8 +211,11 @@ def main():
     if sys.argv[1:2] == ["train"] and sys.argv[2:] in ([], ["micformer"], ["mednext"]):
         print(profile_train(*sys.argv[2:]), flush=True)
         return
+    if sys.argv[1:] == ["train", "fused"]:
+        print(profile_train("micformer", fused=True), flush=True)
+        return
     if sys.argv[1:]:
-        raise SystemExit("usage: profile_torch_forward.py [train [micformer|mednext]]")
+        raise SystemExit("usage: profile_torch_forward.py [train [micformer|fused|mednext]]")
     for name in MODELS:
         print(profile_model(name), flush=True)
         torch.cuda.empty_cache()

@@ -153,4 +153,6 @@ def test_cpu_calls_count_no_launch_and_no_route():
     window_attention_backward(q, k, v, g)
     assert dict(LAUNCHES) == before
     assert ROUTES == {name: dict.fromkeys(ROUTE_NAMES, 0)
-                      for name in ("window_attention", "window_attention_backward")}
+                      for name in ("window_attention", "window_attention_backward",
+                                   "fused_window_attention",
+                                   "fused_window_attention_backward")}

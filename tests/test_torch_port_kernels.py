@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card:
 window attention (K1) and its backward on each of their two routes (mma,
-ffma), the fused window attention (K2) and
-its backward, and the depthwise k³ conv (K3) and its backward (dx through
+ffma), the fused window attention (K2) and its backward on the same two
+routes, and the depthwise k³ conv (K3) and its backward (dx through
 K3, dw and db through the weight-gradient kernel), on each of their three
 staging routes (tma, volume, cp_async).
 
@@ -27,7 +27,8 @@ from micformer_tpu_torch.kernels.dw_conv3 import (
     dw_conv3_backward_reference, dw_conv3_reference, dw_conv3_wgrad_reference,
 )
 from micformer_tpu_torch.kernels.fused_window_attention import (
-    fused_window_attention, fused_window_attention_backward,
+    _backward as _fused_backward, _forward as _fused_forward, _fused_aligned, _fused_plan,
+    _fused_route, _fused_smem, fused_window_attention, fused_window_attention_backward,
     fused_window_attention_backward_reference, fused_window_attention_reference,
 )
 from micformer_tpu_torch.kernels.window_attention import (
@@ -405,6 +406,136 @@ def test_fused_window_attention_autograd_raises_and_counts_on_card(cuda_device):
         fused_window_attention(x.half(), x.half(), x.half())
     with pytest.raises(ValueError):
         fused_window_attention(x.transpose(2, 3), x.transpose(2, 3), x.transpose(2, 3))
+
+
+# (N, h, T, d): K2 at the four stages of a b1 training step and of a b4
+# serving forward, then its contract's corners (T 1-32, d 6-128, ragged N)
+FUSED_PATH = [(4096, 3, 8, 16), (512, 6, 8, 16), (64, 12, 8, 16), (8, 24, 8, 16),
+              (16384, 3, 8, 16), (2048, 6, 8, 16), (256, 12, 8, 16), (32, 24, 8, 16)]
+FUSED_CORNERS = [(1000, 4, 4, 8), (300, 3, 16, 64), (77, 2, 32, 128), (13, 5, 32, 16),
+                 (33, 2, 16, 24), (3, 2, 8, 6), (9, 5, 2, 64), (40, 7, 1, 100),
+                 (20, 3, 8, 48)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,h,T,d", FUSED_PATH + FUSED_CORNERS)
+def test_fused_window_attention_routes_match_reference_on_card(cuda_device, N, h, T, d):
+    """K2 and its backward on every route that takes the inputs (mma and
+    ffma where bf16, T = 8 and d % 16 == 0; else ffma), on [N, h, T, d] views
+    of the dense, self and cross layouts and with every operand one element
+    off 16-byte alignment (ffma, element staging), against the plain
+    versions; where both routes apply they agree; each launch is counted on
+    its route."""
+    for dt in (torch.float32, torch.bfloat16):
+        routes = ("mma", "ffma") if _fused_route(T, d, dt, True) == "mma" else ("ffma",)
+        gen = torch.Generator(device=cuda_device).manual_seed(N + T + d)
+        cases = {name: tuple(t.transpose(1, 2) for t in qkv)
+                 for name, qkv in _layouts(cuda_device, dt, N, T, h, d, N + d).items()}
+        cases["misaligned"] = tuple(_offset(t, 1) for t in cases["dense"])
+        for name, (q, k, v) in cases.items():
+            g = torch.randn(q.shape, generator=gen, device=cuda_device).to(dt)
+            if name == "misaligned":
+                g = _offset(g, 1)
+                assert not _fused_aligned(d, q, k, v, g)
+            ref = fused_window_attention_reference(q, k, v).float()
+            ref_grads = fused_window_attention_backward_reference(q, k, v, g)
+            got = {}
+            for route in routes if name != "misaligned" else ("ffma",):
+                before = {kern: dict(c) for kern, c in ATTN_ROUTES.items()}
+                out = _fused_forward(q, k, v, None, route=route)
+                grads = _fused_backward(q, k, v, g, None, route=route)
+                torch.cuda.synchronize()
+                assert _attn_routes_counted("fused_window_attention", route, before)
+                assert _attn_routes_counted("fused_window_attention_backward", route, before)
+                assert (out.float() - ref).abs().max().item() <= ATOL[dt], (name, dt, route)
+                for a, b in zip(grads, ref_grads):
+                    assert a.shape == b.shape and a.dtype == dt
+                    torch.testing.assert_close(a.float(), b.float(), **BWD_TOL[dt],
+                                               msg=f"{name} {dt} {route}")
+                got[route] = (out, *grads)
+            if len(got) == 2:
+                for a, b in zip(got["mma"], got["ffma"]):
+                    torch.testing.assert_close(a.float(), b.float(), **BWD_TOL[dt],
+                                               msg=f"{name}: mma against ffma")
+
+
+@pytest.mark.cuda
+def test_fused_window_attention_refuses_routes_the_inputs_cannot_take_on_card(cuda_device):
+    """The mma route for f32, T != 8, d not a multiple of 16 or misaligned
+    operands fails in the C entry and raises; nothing is counted and nothing
+    falls back. An unknown route raises before any launch."""
+    def rand(N, h, T, d, dt):
+        return torch.randn(N, h, T, d, device=cuda_device).to(dt)
+
+    bf16 = torch.bfloat16
+    cases = [rand(64, 3, 8, 16, torch.float32), rand(64, 3, 4, 16, bf16),
+             rand(64, 3, 16, 16, bf16), rand(64, 3, 8, 24, bf16),
+             _offset(rand(64, 3, 8, 16, bf16), 1)]
+    before = dict(LAUNCHES), {kern: dict(c) for kern, c in ATTN_ROUTES.items()}
+    for q in cases:
+        with pytest.raises(RuntimeError):
+            _fused_forward(q, q, q, None, route="mma")
+        with pytest.raises(RuntimeError):
+            _fused_backward(q, q, q, torch.ones_like(q), None, route="mma")
+    with pytest.raises(ValueError):
+        _fused_forward(cases[1], cases[1], cases[1], None, route="wgmma")
+    assert dict(LAUNCHES) == before[0]
+    assert {kern: dict(c) for kern, c in ATTN_ROUTES.items()} == before[1]
+
+
+@pytest.mark.cuda
+def test_fused_window_attention_plans_take_the_shared_memory_the_kernels_count_on_card(
+        cuda_device):
+    """`_fused_smem`, by which `_fused_plan` sizes a tile, equals what the C
+    entries launch with (their smem queries), for the plans of every path
+    stage and contract corner on both routes and both directions, the
+    opted-in one-pair plans of T = 32, d = 128 in f32 among them."""
+    lib = _build.load("window_attention")
+    fwd = lib.fused_window_attention_forward_smem
+    bwd = _build.load("window_attention_backward").fused_window_attention_backward_smem
+    for (N, h, T, d), dt, backward, aligned in itertools.product(
+            FUSED_PATH + FUSED_CORNERS, (torch.float32, torch.bfloat16), (False, True),
+            (False, True)):
+        route = _fused_route(T, d, dt, aligned)
+        W, Hg, warps = _fused_plan(N, T, h, d, dt, route, backward, _sms(cuda_device))
+        want = _fused_smem(W, Hg, T, d, dt, route, backward, warps)
+        code = ATTN_DTYPE_CODES[dt]
+        got = (bwd(W, Hg, warps, T, d, code, ATTN_ROUTE_NAMES.index(route)) if backward
+               else fwd(W, Hg, T, d, code))
+        assert got == want, (N, h, T, d, dt, route, backward)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,h,T,d", [(4096, 3, 8, 16), (8, 24, 8, 16), (300, 3, 16, 64),
+                                     (77, 2, 32, 128), (33, 2, 16, 24)])
+def test_fused_window_attention_backward_is_bitwise_reproducible_on_card(cuda_device, N, h, T,
+                                                                        d):
+    """dq, dk and dv have no atomics and a fixed summation order: two calls
+    on the same inputs agree bit for bit, on both routes."""
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (t.transpose(1, 2) for t in _layouts(cuda_device, dt, N, T, h, d, N)["self"])
+        g = torch.randn(q.shape, device=cuda_device).to(dt)
+        first = fused_window_attention_backward(q, k, v, g)
+        second = fused_window_attention_backward(q, k, v, g)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,T,h,d", [(4096, 8, 3, 16), (8, 8, 24, 16), (1000, 8, 3, 16),
+                                     (37, 8, 2, 64)])
+def test_fused_and_window_attention_agree_bitwise_at_t8_on_card(cuda_device, N, T, h, d):
+    """K2 on the [N, h, T, d] transposed views of K1's inputs runs K1's device
+    code on both routes: the same output and gradients, bit for bit."""
+    for dt in (torch.float32, torch.bfloat16):
+        for name, (q, k, v) in _layouts(cuda_device, dt, N, T, h, d, N + h).items():
+            g = torch.randn(q.shape, device=cuda_device).to(dt)
+            k1 = (window_attention(q, k, v), *window_attention_backward(q, k, v, g))
+            qt, kt, vt, gt = (t.transpose(1, 2) for t in (q, k, v, g))
+            k2 = (fused_window_attention(qt, kt, vt),
+                  *fused_window_attention_backward(qt, kt, vt, gt))
+            for a, b in zip(k1, k2):
+                assert torch.equal(a, b.transpose(1, 2)), (name, dt)
 
 
 # dx as DW_TOL (K3 itself); dw and db: sums of up to 10^5 exact f32 products
