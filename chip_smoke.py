@@ -67,7 +67,19 @@ Phases; any error in any of them fails the run (non-zero exit, no result line):
                backward (K2 and its backward in the fused epoch) on the mma
                route only. Launch counts, routes and peak
                memory are reset just before each run and read just after.
-  7. lines   - a {"kernels": [...]} line, then the {"ok": true, ...} line last.
+  7. predict - from the runs of phase 6 (MicFormer, fused, MedNeXt-S), f32
+               on a second synthetic root (15 cases of 48³, two of them in
+               the test split) at 160³, roi 128, sw_batch 4, mirror TTA:
+               cli/predict serially and with batched TTA (MicFormer: their
+               softmax within 2e-3 of each other and of a direct
+               sliding_window_inference on the checkpoint), from the fused
+               run, from MedNeXt-S with --native-geometry, and a two-fold
+               ensemble; cli/ensemble; cli/evaluate --regions on every output
+               (in-process, each timed alone); serve --run-dir of the
+               MedNeXt-S run (bf16) on two NIfTI pairs and one .npy. Exact
+               launches, routes (f32: K1 and K2 ffma; K3 tma and volume),
+               seconds a case and peak memory of each run.
+  8. lines   - a {"kernels": [...]} line, then the {"ok": true, ...} line last.
 """
 
 from __future__ import annotations
@@ -77,6 +89,7 @@ import copy
 import glob
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -1047,6 +1060,209 @@ def phase_serve(name, model_cpu, work):
     return res
 
 
+def phase_predict(work):
+    """cli/predict, cli/ensemble, cli/evaluate and serve --run-dir from the
+    runs phase_train left, at full width on a second synthetic root (15
+    cases of 48³: two in the test split), each predict f32 at 160³, roi 128,
+    overlap 0.5, sw_batch 4 (8 tiles, 2 chunks), mirror TTA (8 flips).
+    Each run's launches are exact: tiles, chunks, flips and folds times a
+    forward's launches; counts, routes and peak memory are reset just before
+    each run and read just after. Each output is evaluated in-process right
+    after it is written, and timed alone."""
+    from micformer_tpu_torch import registry
+    from micformer_tpu_torch.cli import ensemble, evaluate, predict, serve
+    from micformer_tpu_torch.data.image_utils import label_to_one_hot
+    from micformer_tpu_torch.data.mmwhs import get_datasets
+    from micformer_tpu_torch.data.nifti import read_nifti, write_nifti
+    from micformer_tpu_torch.data.synthetic import write_synthetic_dataset
+    from micformer_tpu_torch.infer import sliding_window_inference
+    from micformer_tpu_torch.infer.sliding_window import compute_steps_monai
+    from micformer_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    t_phase = time.perf_counter()
+    data, cache = os.path.join(work, "mmwhs_predict"), os.path.join(work, "cache_predict")
+    write_synthetic_dataset(data, n_cases=15, shape=(48, 48, 48), seed=1)
+    runs = {n: os.path.join(work, n) for n in ("run", "run_fused", "run_mednext")}
+    size, roi, sw = 160, 128, 4
+    tiles = math.prod(len(a) for a in compute_steps_monai((size,) * 3, (roi,) * 3, 0.5))
+    chunks, flips = -(-tiles // sw), 8
+    # the launches of one forward of each run's model
+    forward = {"run": PATHS["micformer"]["slice"],
+               "run_fused": expect(fused_window_attention=96),
+               "run_mednext": PATHS["mednext"]["slice"]}
+    f32_routes = {"run": {"window_attention": ["ffma"]},
+                  "run_fused": {"fused_window_attention": ["ffma"]},
+                  "run_mednext": {"dw_conv3": PATH_ROUTES}}
+    grid = ["--data", data, "--cache", cache, "--target-shape", str(size), "--roi", str(roi),
+            "--overlap", "0.5", "--sw-batch-size", str(sw), "--mirror-tta", "--workers", "2"]
+    saved = ["--largest-cc", "--save-softmax", "--save-seg-for-next-stage", "--overlays"]
+    # (name, run dirs, extra arguments, batched TTA)
+    plan = [("micformer serial", ["run"], saved, False),
+            ("micformer batched", ["run"], saved, True),
+            ("micformer fused", ["run_fused"], saved, False),
+            ("mednext native", ["run_mednext"], ["--native-geometry", "--largest-cc"], False),
+            ("two-fold ensemble", ["run", "run_fused"], ["--largest-cc"], False)]
+    res = {"tiles": tiles, "chunks": chunks, "flips": flips}
+    gt = {"model": os.path.join(work, "gt_model"), "native": os.path.join(work, "gt_native")}
+
+    def evaluate_dir(out, gt_dir):
+        """cli/evaluate --json --regions on `out`, timed alone, and its JSON
+        checked: every case, Dice in [0, 1], HD95 finite exactly when the
+        class is in both maps (else nan, the evaluator's value)."""
+        summary_path = os.path.join(out, "summary.json")
+        t0 = time.perf_counter()
+        evaluate.main(["--pred", out, "--gt", gt_dir, "--json", summary_path, "--regions"])
+        seconds = time.perf_counter() - t0
+        with open(summary_path) as f:
+            summary = json.load(f)
+        cases = summary["results"]["all"]
+        bad = [(i, c, m) for i, case in enumerate(cases) for c, m in case.items()
+               if not 0.0 <= m["Dice"] <= 1.0
+               or (math.isfinite(m["Hausdorff Distance 95"])
+                   != (m["True Positives"] + m["False Positives"] > 0
+                       and m["True Positives"] + m["False Negatives"] > 0))]
+        if len(cases) != len(pids) or bad or "regions" not in summary:
+            raise AssertionError(f"evaluate {out}: {len(cases)} cases, bad entries {bad}")
+        name = os.path.basename(out)
+        res[f"evaluate {name}"] = {"seconds": seconds, "s_per_case": seconds / len(cases)}
+        log(f"evaluate {name}: {len(cases)} cases in {seconds:.2f} s "
+            f"({seconds / len(cases):.2f} s a case), whole-heart region Dice "
+            f"{summary['regions']['dc']['whole heart']['mean']:.4f}")
+
+    _, _, test_ds = get_datasets(data, cache_dir=cache, target_shape=(size,) * 3)
+    os.makedirs(gt["model"])
+    os.makedirs(gt["native"])
+    for i in range(len(test_ds)):
+        s = test_ds[i]
+        pid = s["patient_id"]
+        write_nifti(os.path.join(gt["model"], f"{pid}_gt.nii.gz"),
+                    np.argmax(s["label"], axis=0).astype(np.uint8))
+        native = label_to_one_hot(read_nifti(test_ds.cases[i].ct_label))
+        write_nifti(os.path.join(gt["native"], f"{pid}_gt.nii.gz"),
+                    np.argmax(native, axis=0).astype(np.uint8))
+    pids = [test_ds.cases[i].patient_id for i in range(len(test_ds))]
+    if len(pids) != 2:
+        raise AssertionError(f"predict: test split of {pids}, want two cases")
+
+    outs = {}
+    for name, run_names, extra, batched in plan:
+        out = os.path.join(work, "pred_" + name.split()[-1])
+        outs[name] = out
+        # every fold runs the model of the first run's config.json, as
+        # the JAX CLI rebuilds it: the ensemble runs K1 for both folds
+        first = run_names[0]
+        want = {k: len(pids) * len(run_names) * forward[first][k] * chunks
+                * (1 if batched else flips) for k in KERNELS}
+        want_routes = {k: f32_routes[first].get(k, []) for k in KERNELS}
+        if batched:
+            os.environ["MICFORMER_TTA_BATCHED"] = "1"
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        reset_all_routes()
+        t0 = time.perf_counter()
+        try:
+            recs = predict.main(grid + extra + ["--out", out, "--run-dirs"]
+                                + [runs[r] for r in run_names])
+        finally:
+            os.environ.pop("MICFORMER_TTA_BATCHED", None)
+        wall = time.perf_counter() - t0
+        launches, routes = dict(LAUNCHES), all_routes()
+        peak = torch.cuda.max_memory_allocated()
+        per_case = [r["launches"] for r in recs]
+        res[name] = {"wall_s": wall, "case_s": [r["seconds"] for r in recs],
+                     "infer_s": [r["infer_seconds"] for r in recs],
+                     "launches": launches, "launches_per_case": per_case[0],
+                     "routes": routes, "max_memory_allocated": peak}
+        log(f"predict {name}: {len(recs)} cases 2x{size}³ f32 roi {roi} sw_batch {sw}, "
+            f"{'batched' if batched else 'serial'} TTA, folds {run_names}: seconds a case "
+            f"{res[name]['case_s']} (inference to the label map on the host "
+            f"{res[name]['infer_s']}), wall {wall:.2f} s, peak {peak / 2 ** 30:.2f} GiB, "
+            f"launches {launches}, per case {per_case}, routes {routes}")
+        half = {k: n // len(pids) for k, n in want.items()}
+        if (sorted(r["patient_id"] for r in recs) != sorted(pids) or launches != want
+                or per_case != [half] * len(pids) or routes != want_routes):
+            raise AssertionError(f"predict {name}: cases {[r['patient_id'] for r in recs]}, "
+                                 f"launches {launches} (want {want}), per case {per_case}, "
+                                 f"routes {routes} (want {want_routes})")
+        for pid in pids:
+            seg = read_nifti(os.path.join(out, f"{pid}_pred.nii.gz"))
+            shape = (48,) * 3 if "--native-geometry" in extra else (size,) * 3
+            if seg.shape != shape or seg.dtype != np.uint8 or seg.max() >= 8:
+                raise AssertionError(f"predict {name}: {pid} segmentation {seg.shape} "
+                                     f"{seg.dtype} max {seg.max()}")
+        evaluate_dir(out, gt["native" if "--native-geometry" in extra else "model"])
+
+    # the batched TTA's softmax against the serial one's, and the serial
+    # one against a direct sliding-window call on the same checkpoint
+    def softmax(name, pid):
+        return np.load(os.path.join(outs[name], f"{pid}_softmax.npz"))["softmax"].astype(
+            np.float32)
+
+    diff = max(np.abs(softmax("micformer serial", p) - softmax("micformer batched", p)).max()
+               for p in pids)
+    model = registry.build("micformer", device="cuda")
+    model.load_state_dict(torch.load(os.path.join(runs["run"], "ckpt_best_dice.pt"),
+                                     map_location="cpu", weights_only=True)["params"])
+    s = test_ds[0]
+    logits = sliding_window_inference(
+        torch.tensor(s["image"][None], device="cuda"), (roi,) * 3, model, num_classes=8,
+        overlap=0.5, sw_batch_size=sw, mirror_tta=True, tta_batched=False)
+    direct = torch.softmax(logits, dim=1)[0].cpu().numpy()
+    ddiff = float(np.abs(direct - softmax("micformer serial", s["patient_id"])).max())
+    res["serial_vs_batched_max_abs"], res["serial_vs_direct_max_abs"] = float(diff), ddiff
+    log(f"predict: softmax max |d| serial vs batched TTA {diff:.3g}, serial vs a direct "
+        f"sliding_window_inference on ckpt_best_dice.pt {ddiff:.3g} (limit 2e-3 each)")
+    if not (diff <= 2e-3 and ddiff <= 2e-3):
+        raise AssertionError(f"predict: softmax differs: batched {diff}, direct {ddiff}")
+    del model, logits
+
+    ens = os.path.join(work, "pred_cli_ensemble")
+    ensemble.main(["--inputs", outs["micformer serial"], outs["micformer fused"],
+                   "--out", ens, "--largest-cc"])
+    for pid in pids:
+        if read_nifti(os.path.join(ens, f"{pid}_pred.nii.gz")).shape != (size,) * 3:
+            raise AssertionError(f"ensemble: bad segmentation for {pid}")
+    evaluate_dir(ens, gt["model"])
+
+    # serve the MedNeXt run: two NIfTI pairs and one .npy request
+    watch, served = os.path.join(work, "serve_run_in"), os.path.join(work, "serve_run_out")
+    os.makedirs(watch)
+    for pid in pids:
+        for mod in ("ct", "mr"):
+            shutil.copy(os.path.join(data, f"{mod}_{pid}_image.nii.gz"), watch)
+    np.save(os.path.join(watch, "vol.npy"), np.random.default_rng(3).normal(
+        size=(2, size, size, size)).astype(np.float32))
+    for f in os.listdir(watch):
+        os.utime(os.path.join(watch, f), (time.time() - 5,) * 2)
+    reset_launches()
+    reset_all_routes()
+    lat = serve.main(["--run-dir", runs["run_mednext"], "--ckpt-tag", "best_dice", "--bf16",
+                      "--watch", watch, "--out", served, "--target-shape", str(size),
+                      "--roi", str(roi), "--overlap", "0.5", "--sw-batch-size", str(sw),
+                      "--max-requests", "3", "--poll", "0.05", "--idle-exit", "300"])
+    launches, routes = dict(LAUNCHES), all_routes()
+    names = [f"ct_{pid}" for pid in pids] + ["vol"]
+    per_request = []
+    for n in names:
+        if read_nifti(os.path.join(served, f"{n}_seg.nii.gz")).shape != (size,) * 3:
+            raise AssertionError(f"serve --run-dir: bad segmentation for {n}")
+        with open(os.path.join(served, f"{n}.done")) as f:
+            per_request.append(json.load(f)["launches"])
+    want = PATHS["mednext"]["request"]
+    want_routes = {k: PATH_ROUTES if k == "dw_conv3" else [] for k in KERNELS}
+    res["serve_run_dir"] = {"latency_s": lat, "launches": launches,
+                            "launches_per_request": per_request, "routes": routes}
+    log(f"serve --run-dir run_mednext bf16: requests {names}, latencies {lat}, launches "
+        f"{launches}, per request {per_request}, routes {routes}")
+    if per_request != [want] * 3 or routes != want_routes:
+        raise AssertionError(f"serve --run-dir: launches per request {per_request} (want "
+                             f"{want}), routes {routes} (want {want_routes})")
+
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"predict phase: {res['wall_s']:.2f} s")
+    return res
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -1080,6 +1296,7 @@ def main():
             serve[name] = phase_serve(name, model_cpu, work)
             del model_cpu
         train = phase_train(work)
+        phase_predict(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

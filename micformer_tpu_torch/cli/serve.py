@@ -1,25 +1,32 @@
 """Online serving loop: a filesystem-queue inference daemon.
 
-Counterpart of the `.npy` request path of `micformer_tpu/cli/serve.py`. Load
-the model once, then serve requests as they arrive; a producer thread loads
-request k+1 while the device computes request k.
+Counterpart of `micformer_tpu/cli/serve.py`. Load the model once, then serve
+requests as they arrive; a producer thread loads and preprocesses request
+k+1 while the device computes request k.
 
 Request protocol (drop files into --watch):
-  <name>.npy    float32/float16 [2, D, H, W] preprocessed CT+MR volume.
+  <name>.npy              float32/float16 [2, D, H, W] preprocessed CT+MR
+                          volume, or
+  ct_<id>_image.nii.gz    the CT half of a raw pair; its mr_<id>_image.nii.gz
+                          partner is read with it, and both are normalised
+                          (--normalisation) and resized to --target-shape as
+                          in training's preprocessing.
 Results appear in --out as <name>_seg.nii.gz plus a <name>.done file holding
 one JSON line: the request's latency and the kernel launches it made. A
 request file is claimed once its mtime is 0.2 s old (write-complete
-heuristic) and never reprocessed; a malformed one gets a <name>.npy.error.
+heuristic) and never reprocessed; a malformed one gets a <file>.error.
 
-Weights come from --weights, a state_dict saved with torch.save; the model is
---model (micformer or mednext), built from the registry with --model-kwargs
-(JSON) over its defaults. A model that returns a list (deep supervision)
-serves its first, full-resolution output. PyTorch runs eagerly, so there is
-no executable to warm: the first request builds the kernel libraries if no
-earlier call did.
+The model comes from a training run (--run-dir: `config.json` and
+`ckpt_<--ckpt-tag>.pt`, rebuilt by `config.run_model`) or from --weights, a
+state_dict saved with torch.save, with --model (micformer or mednext) built
+from the registry. --model-kwargs (JSON) goes over either's arguments. A
+model that returns a list (deep supervision) serves its first,
+full-resolution output. PyTorch runs eagerly, so there is no executable to
+warm: the first request builds the kernel libraries if no earlier call did.
+Serving an exported artifact (--exported) is not ported yet.
 
-    python -m micformer_tpu_torch.cli.serve --model mednext --weights w.pt \
-        --watch in/ --out out/ --bf16 --max-requests 3
+    python -m micformer_tpu_torch.cli.serve --run-dir runs/mednext \
+        --watch in/ --out out/ --bf16 --target-shape 160 --max-requests 3
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ import torch
 
 
 def _discover_requests(watch: str, seen: set[str]):
-    """New, write-complete .npy request files."""
+    """New, write-complete request files (.npy or ct_*_image.nii.gz)."""
     out = []
     now = time.time()
     try:
@@ -45,7 +52,9 @@ def _discover_requests(watch: str, seen: set[str]):
         return out
     for fn in names:
         path = os.path.join(watch, fn)
-        if path in seen or not fn.endswith(".npy") or not os.path.isfile(path):
+        is_request = fn.endswith(".npy") or (fn.startswith("ct_")
+                                             and fn.endswith("_image.nii.gz"))
+        if path in seen or not is_request or not os.path.isfile(path):
             continue
         try:
             if now - os.path.getmtime(path) < 0.2:
@@ -56,29 +65,56 @@ def _discover_requests(watch: str, seen: set[str]):
     return out
 
 
-def _load_request(path: str):
+def _load_request(path: str, target_shape, normalisation: str):
     """-> (request name, image [2, D, H, W] float32)."""
-    img = np.asarray(np.load(path), dtype=np.float32)
-    if img.ndim != 4 or img.shape[0] != 2:
-        raise ValueError(f"{path}: expected [2, D, H, W], got {img.shape}")
-    return os.path.basename(path)[: -len(".npy")], img
+    if path.endswith(".npy"):
+        img = np.asarray(np.load(path), dtype=np.float32)
+        if img.ndim != 4 or img.shape[0] != 2:
+            raise ValueError(f"{path}: expected [2, D, H, W], got {img.shape}")
+        return os.path.basename(path)[: -len(".npy")], img
+
+    from micformer_tpu_torch.data import image_utils as iu
+    from micformer_tpu_torch.data.nifti import read_nifti
+
+    mr_path = os.path.join(os.path.dirname(path),
+                           os.path.basename(path).replace("ct_", "mr_", 1))
+    norm = iu.NORMALIZERS[normalisation]
+    ct = norm(read_nifti(path, dtype=np.float32))
+    mr = norm(read_nifti(mr_path, dtype=np.float32))
+    img = np.stack([iu.resize_trilinear(ct, target_shape),
+                    iu.resize_trilinear(mr, target_shape)]).astype(np.float32)
+    return os.path.basename(path)[: -len("_image.nii.gz")], img
 
 
 def main(argv=None):
     from micformer_tpu_torch import registry
+    from micformer_tpu_torch.config import run_model
+    from micformer_tpu_torch.data.image_utils import NORMALIZERS
     from micformer_tpu_torch.data.nifti import write_nifti
     from micformer_tpu_torch.infer import sliding_window_inference
     from micformer_tpu_torch.kernels import LAUNCHES
+    from micformer_tpu_torch.train.checkpoint import CheckpointManager
 
     p = argparse.ArgumentParser("micformer_tpu_torch.serve")
-    p.add_argument("--weights", required=True, help="state_dict .pt file")
-    p.add_argument("--model", default="micformer", help="registered model family")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--run-dir", default=None,
+                     help="training run dir (config.json and checkpoints)")
+    src.add_argument("--weights", default=None, help="state_dict .pt file")
+    src.add_argument("--exported", default=None,
+                     help="an exported artifact dir (not ported yet)")
+    p.add_argument("--ckpt-tag", default="best_dice",
+                   choices=["best_dice", "best_loss", "latest"])
+    p.add_argument("--model", default=None,
+                   help="registered model family (default: the run's, else micformer)")
     p.add_argument("--model-kwargs", default="{}",
                    help="JSON object of model constructor arguments")
     p.add_argument("--num_classes", type=int, default=8)
     p.add_argument("--device", default="cuda")
     p.add_argument("--watch", required=True, help="request drop directory")
     p.add_argument("--out", required=True, help="result directory")
+    p.add_argument("--target-shape", type=int, default=128,
+                   help="size NIfTI-pair requests are resized to")
+    p.add_argument("--normalisation", default="minmax", choices=sorted(NORMALIZERS))
     p.add_argument("--roi", type=int, default=128)
     p.add_argument("--overlap", type=float, default=0.5)
     p.add_argument("--sw-batch-size", type=int, default=4)
@@ -97,14 +133,23 @@ def main(argv=None):
                    help="exit after this many idle seconds (default: run "
                         "forever)")
     args = p.parse_args(argv)
+    if args.exported:
+        raise NotImplementedError("serve --exported is not ported yet: ROADMAP queue 1, "
+                                  "item 5 (cli/export.py, convert/aot_export.py)")
     os.makedirs(args.out, exist_ok=True)
+    ts = (args.target_shape,) * 3
 
-    kwargs = dict(json.loads(args.model_kwargs), num_classes=args.num_classes)
+    if args.run_dir:
+        model_name, kwargs = run_model(args.run_dir, args.model, args.num_classes)
+        state = CheckpointManager(args.run_dir).restore_params_only(args.ckpt_tag)
+    else:
+        model_name, kwargs = args.model or "micformer", {"num_classes": args.num_classes}
+        state = torch.load(args.weights, map_location="cpu", weights_only=True)
+    kwargs.update(json.loads(args.model_kwargs))
     if args.fused_attention:
         kwargs["fused_attention"] = True
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    model = registry.build(args.model, dtype=dtype, device=args.device, **kwargs)
-    state = torch.load(args.weights, map_location="cpu", weights_only=True)
+    model = registry.build(model_name, dtype=dtype, device=args.device, **kwargs)
     model.load_state_dict(state)
     dev = next(model.parameters()).device
 
@@ -119,7 +164,7 @@ def main(argv=None):
             step_mode=args.step_mode, mirror_tta=args.mirror_tta)
         return logits.argmax(dim=1).to(torch.uint8)
 
-    print(f"serve: {args.model} on {dev} (roi {args.roi}, sw_batch "
+    print(f"serve: {model_name} on {dev} (roi {args.roi}, sw_batch "
           f"{args.sw_batch_size}, {dtype}); watching {args.watch}", flush=True)
 
     # producer thread: watch + load (host-bound); main thread: device compute
@@ -134,7 +179,7 @@ def main(argv=None):
             for path in found:
                 seen.add(path)
                 try:
-                    name, img = _load_request(path)
+                    name, img = _load_request(path, ts, args.normalisation)
                 except (OSError, ValueError) as e:  # malformed: report, go on
                     with open(os.path.join(args.out, os.path.basename(path)
                                            + ".error"), "w") as f:

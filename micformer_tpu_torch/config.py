@@ -5,7 +5,7 @@ training slices read, plus `--fused-attention` (the JAX package's
 MICFORMER_FUSED_ATTENTION=1), `--device` and `--model-kwargs`. Every flag
 defaults to None, so only a flag that is given overrides the YAML preset.
 YAML needs PyYAML, imported only when a --cfg file is given; the resolved
-config is saved as JSON.
+config is saved as JSON, and `run_model` rebuilds a run's model from it.
 """
 
 from __future__ import annotations
@@ -106,6 +106,28 @@ def save_config(cfg: Config, path: str):
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
         json.dump(dataclasses.asdict(cfg), f, indent=1)
+
+
+def run_model(run_dir: str, model: str | None = None, num_classes: int = 8):
+    """(model name, registry kwargs) of a training run: the model recorded in
+    `<run_dir>/config.json` unless `model` names another family, with the
+    run's num_classes, `extra` (JSON lists back to tuples) and, for
+    MicFormer, its embed_dim and fused_attention. Without a config, or for
+    another family, only `num_classes` is set; the family defaults to
+    micformer."""
+    kwargs = {"num_classes": num_classes}
+    path = os.path.join(run_dir, "config.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            run = load_config(overrides=json.load(f)).model
+        model = model or run.name
+        if model == run.name:
+            kwargs = {k: tuple(v) if isinstance(v, list) else v for k, v in run.extra.items()}
+            kwargs["num_classes"] = run.num_classes
+            if model == "micformer":
+                kwargs.setdefault("embed_dim", run.embed_dim)
+                kwargs["fused_attention"] = run.fused_attention
+    return model or "micformer", kwargs
 
 
 def build_argparser(defaults: Config | None = None) -> argparse.ArgumentParser:

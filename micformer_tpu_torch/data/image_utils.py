@@ -1,7 +1,8 @@
 """Host-side (numpy) image utilities that MM-WHS preprocessing uses.
 
 The port's own copy of the preprocessing subset of
-`micformer_tpu/data/image_utils.py`: min-max normalisation, the MM-WHS
+`micformer_tpu/data/image_utils.py`: the min-max, percentile-clip and
+z-score normalisations, the MM-WHS
 one-hot encoding, and the trilinear and nearest resizes with the semantics of
 `F.interpolate` (align_corners=False half-pixel sampling, floor nearest) in
 numpy, the separable path `_resize_trilinear_py` of the JAX package (not its
@@ -28,7 +29,33 @@ def minmax_normalize(image: np.ndarray) -> np.ndarray:
     return (image - min_) / scale
 
 
-NORMALIZERS = {"minmax": minmax_normalize}
+def percentile_clip_normalize(image: np.ndarray, low_perc=1, high_perc=99) -> np.ndarray:
+    """Clip to the low_perc-high_perc percentiles of the nonzero voxels, then
+    min-max; a volume with no positive voxel gives zeros."""
+    image = np.asarray(image, dtype=np.float32)
+    non_zeros = image > 0
+    if not non_zeros.any():
+        return np.zeros_like(image)
+    low, high = np.percentile(image[non_zeros], [low_perc, high_perc])
+    return minmax_normalize(np.clip(image, low, high))
+
+
+def zscore_normalize(image: np.ndarray) -> np.ndarray:
+    """Z-score over the nonzero voxels; zeros stay zero."""
+    image = np.asarray(image, dtype=np.float32).copy()
+    mask = image != 0
+    if mask.any():
+        vals = image[mask]
+        std = vals.std()
+        image[mask] = (vals - vals.mean()) / (std if std > 0 else 1.0)
+    return image
+
+
+NORMALIZERS = {
+    "minmax": minmax_normalize,
+    "percentile": percentile_clip_normalize,
+    "zscore": zscore_normalize,
+}
 
 
 def label_to_one_hot(label: np.ndarray, label_values=MMWHS_LABEL_VALUES) -> np.ndarray:
@@ -53,11 +80,14 @@ def _linear_weights(out_size: int, in_size: int):
 
 
 def resize_trilinear(volume: np.ndarray, out_shape) -> np.ndarray:
-    """Trilinear resize of a 3D volume, as F.interpolate(mode='trilinear',
-    align_corners=False): one separable linear pass per axis, float32."""
+    """Trilinear resize of a 3D volume, or of each channel of a [C, D, H, W]
+    array, as F.interpolate(mode='trilinear', align_corners=False): one
+    separable linear pass per axis, float32."""
     volume = np.asarray(volume, dtype=np.float32)
+    if volume.ndim == 4:
+        return np.stack([resize_trilinear(c, out_shape) for c in volume])
     if volume.ndim != 3:
-        raise ValueError(f"resize_trilinear: expected a 3D volume, got {volume.shape}")
+        raise ValueError(f"resize_trilinear: expected a 3D or 4D volume, got {volume.shape}")
     out = volume
     for axis, out_size in enumerate(out_shape):
         in_size = out.shape[axis]

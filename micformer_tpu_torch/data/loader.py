@@ -1,20 +1,51 @@
 """Host-side batching: shuffling, thread workers and prefetch.
 
-Counterpart of `micformer_tpu/data/loader.py` (thread workers only). A
-producer thread assembles compact batches ahead of the consumer: images as
-float16 and one-hot labels collapsed to uint8 class indices, about ten times
-fewer bytes than f32 one-hot; the trainer upcasts and one-hots them on the
-device. Augmentation does not happen here (see `data/transforms.py`).
+Counterpart of `micformer_tpu/data/loader.py`. A producer thread assembles
+compact batches ahead of the consumer: images as float16 and one-hot labels
+collapsed to uint8 class indices, about ten times fewer bytes than f32
+one-hot; the trainer upcasts and one-hots them on the device. Augmentation
+does not happen here (see `data/transforms.py`). `make_fetch_pool` gives
+prediction's case prefetch a pool of threads or of worker processes.
 """
 
 from __future__ import annotations
 
+import multiprocessing
 import queue
 import threading
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+
+# the dataset of a worker process, shipped once by the pool's initializer
+_WORKER_DS = None
+
+
+def _proc_init(ds):
+    global _WORKER_DS
+    _WORKER_DS = ds
+
+
+def _proc_fetch(i):
+    return _WORKER_DS[int(i)]
+
+
+def make_fetch_pool(dataset, workers: int, mode: str = "thread"):
+    """(pool, fetch_one) for parallel dataset[i] fetches; fetch_one(i)
+    returns a future. mode "thread": threads, which overlap the numpy and
+    file work that releases the GIL; "process": worker processes started
+    with spawn (the parent may hold a CUDA context, which fork must not
+    copy), each sent the dataset once. The caller shuts the pool down."""
+    if mode == "process":
+        pool = ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"),
+                                   initializer=_proc_init, initargs=(dataset,))
+        return pool, lambda i: pool.submit(_proc_fetch, int(i))
+    if mode != "thread":
+        raise ValueError(f"unknown worker mode {mode!r}")
+    pool = ThreadPoolExecutor(workers)
+    return pool, lambda i: pool.submit(dataset.__getitem__, int(i))
 
 
 def _stack_batch(samples):

@@ -50,13 +50,17 @@ class CasePaths:
 
     @classmethod
     def from_ct_image(cls, ct_path: str) -> "CasePaths":
-        ct_path = str(ct_path)
+        """The case of `ct_<id>_image.nii.gz`: its partners differ in the file
+        name only (the JAX package rewrites the whole path, so a directory
+        named with "ct" or "image" breaks it)."""
+        root, name = os.path.split(str(ct_path))
+        mr = name.replace("ct", "mr")
         return cls(
-            patient_id=os.path.basename(ct_path).split("_")[-2],
-            ct=ct_path,
-            ct_label=ct_path.replace("image", "label"),
-            mr=ct_path.replace("ct", "mr"),
-            mr_label=ct_path.replace("ct", "mr").replace("image", "label"),
+            patient_id=name.split("_")[-2],
+            ct=os.path.join(root, name),
+            ct_label=os.path.join(root, name.replace("image", "label")),
+            mr=os.path.join(root, mr),
+            mr_label=os.path.join(root, mr.replace("image", "label")),
         )
 
 

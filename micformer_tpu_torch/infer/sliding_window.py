@@ -2,15 +2,17 @@
 
 Counterpart of `micformer_tpu/infer/sliding_window.py`: MONAI and nnU-Net
 tile placement, gaussian or constant blending, tiles batched sw_batch_size at
-a time, zero padding of volumes smaller than the roi, and the serial 8-way
-mirror ensemble. The f32 logit and weight accumulators live on the volume's
-device and are updated in place, tile by tile, in the JAX loop's order.
+a time, zero padding of volumes smaller than the roi, and the 8-way mirror
+ensemble, serial (the default) or batched. The f32 logit and weight
+accumulators live on the volume's device and are updated in place, tile by
+tile, in the JAX loop's order.
 """
 
 from __future__ import annotations
 
 import functools
 import itertools
+import os
 from typing import Callable
 
 import numpy as np
@@ -78,21 +80,43 @@ def _tile_starts(image_size, roi_size, mode: str, overlap: float,
         *[np.asarray(a) for a in per_axis], indexing="ij")], axis=-1)
 
 
+def _flip_subsets(mirror_axes):
+    """Every flip subset of the mirror axes, as the tensor dims of a
+    [B, C, D, H, W] batch, in the JAX package's order."""
+    return [[a + 2 for a in s] for r in range(len(mirror_axes) + 1)
+            for s in itertools.combinations(mirror_axes, r)]
+
+
+def _flip(x, dims):
+    return x.flip(dims) if dims else x
+
+
 def _mirror_tta_predictor(predictor: Callable, mirror_axes=(0, 1, 2)) -> Callable:
     """Average of unflip(predict(flip(x))) over every flip subset of the
     spatial axes, one flip at a time, accumulated in f32."""
-    subsets = [s for r in range(len(mirror_axes) + 1)
-               for s in itertools.combinations(mirror_axes, r)]
+    subsets = _flip_subsets(mirror_axes)
 
     def wrapped(x):
         acc = None
-        for sub in subsets:
-            dims = [a + 2 for a in sub]
-            xi = x.flip(dims) if dims else x
-            y = predictor(xi).float()
-            y = y.flip(dims) if dims else y
+        for dims in subsets:
+            y = _flip(predictor(_flip(x, dims)).float(), dims)
             acc = y if acc is None else acc + y
         return acc / len(subsets)
+
+    return wrapped
+
+
+def _batched_tta_predictor(predictor: Callable, mirror_axes=(0, 1, 2)) -> Callable:
+    """The same ensemble with the F flip variants on the predictor's batch
+    axis: one forward at batch F·b, then the mean of the unflipped f32
+    outputs."""
+    subsets = _flip_subsets(mirror_axes)
+
+    def wrapped(x):
+        b = x.shape[0]
+        preds = predictor(torch.cat([_flip(x, dims) for dims in subsets], 0)).float()
+        return torch.stack([_flip(preds[i * b:(i + 1) * b], dims)
+                            for i, dims in enumerate(subsets)], 0).mean(0)
 
     return wrapped
 
@@ -111,12 +135,18 @@ def sliding_window_inference(
     sw_batch_size: int = 1,
     mirror_tta: bool = False,
     mirror_axes=(0, 1, 2),
+    tta_batched: bool | None = None,
     sigma_scale: float = 1.0 / 8,
 ) -> torch.Tensor:
     """Blended tiled prediction of a whole volume.
 
     volume: [B, C, D, H, W]; predictor: [b, C, *roi] -> [b, num_classes, *roi].
     Returns [B, num_classes, D, H, W] f32 blended logits on volume's device.
+
+    tta_batched: run the mirror ensemble's flips as one forward at batch
+    8·sw_batch_size·B instead of eight serial forwards (eight times the
+    forward's activation memory); None reads MICFORMER_TTA_BATCHED=1, as
+    the JAX function does.
     """
     B, C = volume.shape[:2]
     spatial = tuple(volume.shape[2:])
@@ -134,7 +164,10 @@ def sliding_window_inference(
     coords = _tile_starts(padded, roi, step_mode, overlap, step_size)
     n_tiles = coords.shape[0]
     if mirror_tta:
-        predictor = _mirror_tta_predictor(predictor, mirror_axes)
+        batched = (os.environ.get("MICFORMER_TTA_BATCHED", "0") == "1"
+                   if tta_batched is None else tta_batched)
+        wrap = _batched_tta_predictor if batched else _mirror_tta_predictor
+        predictor = wrap(predictor, mirror_axes)
 
     if blend == "gaussian":
         wmap = torch.from_numpy(gaussian_importance_map(roi, sigma_scale)).to(dev)

@@ -78,5 +78,11 @@ class CheckpointManager:
     def restore(self, tag: str, map_location="cpu") -> Any:
         return torch.load(self._path(tag), map_location=map_location, weights_only=True)
 
+    def restore_params_only(self, tag: str, map_location="cpu") -> Any:
+        """The weights of `ckpt_<tag>.pt`: the trainer payload's "params", or
+        the file's content as it is when it holds a bare state_dict."""
+        full = self.restore(tag, map_location)
+        return full["params"] if isinstance(full, dict) and "params" in full else full
+
     def exists(self, tag: str) -> bool:
         return os.path.exists(self._path(tag))
