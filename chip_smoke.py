@@ -79,7 +79,22 @@ Phases; any error in any of them fails the run (non-zero exit, no result line):
                MedNeXt-S run (bf16) on two NIfTI pairs and one .npy. Exact
                launches, routes (f32: K1 and K2 ffma; K3 tma and volume),
                seconds a case and peak memory of each run.
-  8. lines   - a {"kernels": [...]} line, then the {"ok": true, ...} line last.
+  8. train, the rest - on phase 6's root, bf16, one epoch a run through
+               cli/train.main, each with phase 6's checks (launches a step,
+               routes, finite losses) and its warm ms a step, first step, peak
+               memory and wall: MicFormer --loss gdl; MicFormer --pretrained
+               from phase 6's run with --loss focal (out_conv alone skipped,
+               nothing missing); Trainer.find_lr (8 iterations, topk: rising
+               lrs, finite smoothed losses, a train step's launches each
+               iteration, the trainer's weights unchanged); MedNeXt-S
+               --oversample-fg 0.33 --loss dice_topk; the cascade on
+               previous-stage maps at 64³ with --loss mcc (a 9-channel stem),
+               then cli/predict from it with the same maps (f32, 18 K3
+               launches a case); --single-modal --worker-mode process --loss
+               dice_bce (a 1-channel stem); run_export over the phase's runs;
+               profiling.trace of one MicFormer step (96 K1 and 96 K1-bwd
+               kernel events).
+  9. lines   - a {"kernels": [...]} line, then the {"ok": true, ...} line last.
 """
 
 from __future__ import annotations
@@ -202,6 +217,10 @@ PATHS = {
 TRAIN_STEP = {False: expect(window_attention=96, window_attention_backward=96),
               True: expect(fused_window_attention=96, fused_window_attention_backward=96),
               "mednext": expect(dw_conv3=36, dw_conv3_wgrad=18)}
+
+
+# the training phases' volumes: 2×128³, each model's published patch
+TRAIN_SIZE = 128
 
 
 def log(msg):
@@ -911,16 +930,14 @@ def phase_train(work):
     config for two epochs, --resume for a third, then three epochs of the
     nnU-Net preset. Every step's loss finite, every step's launches as
     TRAIN_STEP says."""
-    from micformer_tpu_torch.cli import train
     from micformer_tpu_torch.data.synthetic import write_synthetic_dataset
-    from micformer_tpu_torch.kernels import LAUNCHES, reset_launches
 
     data = os.path.join(work, "mmwhs")
     t0 = time.perf_counter()
     write_synthetic_dataset(data, n_cases=6, shape=(48, 48, 48), seed=0)
     log(f"train: synthetic MM-WHS root, 6 cases of 48³, {time.perf_counter() - t0:.2f} s")
     common = ["--data", data, "--cache", os.path.join(work, "cache"),
-              "--target-shape", "128", "--bf16", "--val", "1", "--workers", "2"]
+              "--target-shape", str(TRAIN_SIZE), "--bf16", "--val", "1", "--workers", "2"]
     micformer = ["--model", "micformer"]
     mednext = ["--cfg", os.path.join(ROOT, "configs", "mednext_s_mmwhs.yaml")]   # batch 2
     nnunet = ["--model-kwargs", '{"deep_supervision": true}', "--deep-supervision",
@@ -944,52 +961,64 @@ def phase_train(work):
              "mednext", 2, (6, 6))]
     runs = {}
     for name, args, key, batch, want_steps in plan:
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        reset_all_routes()
-        t0 = time.perf_counter()
-        trainer = train.main(common + args)
-        wall = time.perf_counter() - t0
-        launches = dict(LAUNCHES)
-        routes = all_routes()
-        dw_routes = PATH_ROUTES if key == "mednext" else []
-        k1_routes = ATTN_PATH_ROUTES if key is False else []
-        k2_routes = ATTN_PATH_ROUTES if key is True else []
-        want_routes = {"dw_conv3": dw_routes, "dw_conv3_wgrad": dw_routes,
-                       "window_attention": k1_routes, "window_attention_backward": k1_routes,
-                       "fused_window_attention": k2_routes,
-                       "fused_window_attention_backward": k2_routes}
-        peak = torch.cuda.max_memory_allocated()
-        hist = trainer.history
-        losses = [r["loss"] for r in hist]
-        warm = [r["seconds"] for r in hist[1:]]
-        res = {"steps": len(hist), "final_step": trainer.step, "losses": losses,
-               "step_ms": [1e3 * r["seconds"] for r in hist],
-               "batch": batch, "first_step_s": hist[0]["seconds"] if hist else None,
-               "warm_ms_per_step": 1e3 * statistics.mean(warm) if warm else None,
-               "warm_vol_per_s": batch * len(warm) / sum(warm) if warm else None,
-               "max_memory_allocated": peak, "launches": launches, "wall_s": wall,
-               "launches_per_step": hist[0]["launches"] if hist else None, "routes": routes}
-        runs[name] = res
-        log(f"train {name}: {len(hist)} steps of batch {batch} (to step {trainer.step}) in "
-            f"{wall:.2f} s, first step {res['first_step_s']:.3f} s, warm "
-            f"{res['warm_ms_per_step']:.2f} ms/step, {res['warm_vol_per_s']:.3f} vol/s, peak "
-            f"{peak / 2 ** 30:.2f} GiB, step ms {res['step_ms']}, losses {losses}, launches "
-            f"{launches}, per step "
-            f"{res['launches_per_step']}, routes {routes}")
-        want = TRAIN_STEP[key]
-        if routes != want_routes:
-            raise AssertionError(f"train {name}: routes {routes} (want {want_routes})")
-        if ((len(hist), trainer.step) != want_steps
-                or not all(np.isfinite(v) and not r["skipped"] for v, r in zip(losses, hist))
-                or any(r["launches"] != want for r in hist)
-                or any(launches[k] < n * len(hist) for k, n in want.items())):
-            raise AssertionError(f"train {name}: steps {len(hist)} to {trainer.step} (want "
-                                 f"{want_steps}), losses {losses}, launches per step "
-                                 f"{[r['launches'] for r in hist]} (want {want})")
+        runs[name], trainer = train_run(name, common + args, key, batch, want_steps)
         del trainer
         torch.cuda.empty_cache()
     return runs
+
+
+def train_run(name, argv, key, batch, want_steps):
+    """cli/train.main(argv) with launch counts, routes and peak memory reset
+    just before and read just after. Checks: (steps run, step reached) as
+    want_steps, every loss finite and applied, every step's launches
+    TRAIN_STEP[key], routes only tma and volume (K3 family) and mma (K1 or
+    K2). Returns (the run's numbers, the trainer)."""
+    from micformer_tpu_torch.cli import train
+    from micformer_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    reset_all_routes()
+    t0 = time.perf_counter()
+    trainer = train.main(argv)
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    routes = all_routes()
+    dw_routes = PATH_ROUTES if key == "mednext" else []
+    k1_routes = ATTN_PATH_ROUTES if key is False else []
+    k2_routes = ATTN_PATH_ROUTES if key is True else []
+    want_routes = {"dw_conv3": dw_routes, "dw_conv3_wgrad": dw_routes,
+                   "window_attention": k1_routes, "window_attention_backward": k1_routes,
+                   "fused_window_attention": k2_routes,
+                   "fused_window_attention_backward": k2_routes}
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.history
+    losses = [r["loss"] for r in hist]
+    warm = [r["seconds"] for r in hist[1:]]
+    res = {"steps": len(hist), "final_step": trainer.step, "losses": losses,
+           "step_ms": [1e3 * r["seconds"] for r in hist],
+           "batch": batch, "first_step_s": hist[0]["seconds"] if hist else None,
+           "warm_ms_per_step": 1e3 * statistics.mean(warm) if warm else None,
+           "warm_vol_per_s": batch * len(warm) / sum(warm) if warm else None,
+           "max_memory_allocated": peak, "launches": launches, "wall_s": wall,
+           "launches_per_step": hist[0]["launches"] if hist else None, "routes": routes}
+    log(f"train {name}: {len(hist)} steps of batch {batch} (to step {trainer.step}) in "
+        f"{wall:.2f} s, first step {res['first_step_s']:.3f} s, warm "
+        f"{res['warm_ms_per_step']:.2f} ms/step, {res['warm_vol_per_s']:.3f} vol/s, peak "
+        f"{peak / 2 ** 30:.2f} GiB, step ms {res['step_ms']}, losses {losses}, launches "
+        f"{launches}, per step "
+        f"{res['launches_per_step']}, routes {routes}")
+    want = TRAIN_STEP[key]
+    if routes != want_routes:
+        raise AssertionError(f"train {name}: routes {routes} (want {want_routes})")
+    if ((len(hist), trainer.step) != want_steps
+            or not all(np.isfinite(v) and not r["skipped"] for v, r in zip(losses, hist))
+            or any(r["launches"] != want for r in hist)
+            or any(launches[k] < n * len(hist) for k, n in want.items())):
+        raise AssertionError(f"train {name}: steps {len(hist)} to {trainer.step} (want "
+                             f"{want_steps}), losses {losses}, launches per step "
+                             f"{[r['launches'] for r in hist]} (want {want})")
+    return res, trainer
 
 
 def phase_serve(name, model_cpu, work):
@@ -1263,6 +1292,187 @@ def phase_predict(work):
     return res
 
 
+def phase_train_rest(work):
+    """Phase 8: the rest of the trainer on phase 6's root at full width in
+    bf16, one epoch a run (batch 1 MicFormer, batch 2 MedNeXt-S as
+    configs/mednext_s_mmwhs.yaml), each checked by train_run; then find_lr,
+    the cascade's predict, run export and a profiler trace of one step."""
+    from micformer_tpu_torch import registry
+    from micformer_tpu_torch.cli import predict
+    from micformer_tpu_torch.convert.pretrained import load_pretrained_state
+    from micformer_tpu_torch.data.cascade import resize_seg_nearest
+    from micformer_tpu_torch.data.loader import DataLoader
+    from micformer_tpu_torch.data.mmwhs import get_datasets
+    from micformer_tpu_torch.data.nifti import read_nifti
+    from micformer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from micformer_tpu_torch.train import profiling, run_export
+    from micformer_tpu_torch.train.checkpoint import CheckpointManager
+    from micformer_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    data, cache = os.path.join(work, "mmwhs"), os.path.join(work, "cache")
+    size = TRAIN_SIZE
+    splits = get_datasets(data, cache_dir=cache, target_shape=(size,) * 3)
+    # the previous stage's maps, standing in for a low-resolution stage: each
+    # case's label map taken to half the grid (64³; back to 128³ by the
+    # cascade dataset)
+    prev = os.path.join(work, "prev_stage")
+    os.makedirs(prev)
+    for ds in splits:
+        for i in range(len(ds)):
+            s = ds[i]
+            np.save(os.path.join(prev, f"{s['patient_id']}_segFromPrevStage.npy"),
+                    resize_seg_nearest(np.argmax(s["label"], axis=0).astype(np.uint8),
+                                       (size // 2,) * 3))
+    common = ["--data", data, "--cache", cache, "--target-shape", str(size), "--bf16",
+              "--val", "1", "--workers", "2", "--epochs", "1"]
+    micformer = ["--model", "micformer"]
+    mednext = ["--cfg", os.path.join(ROOT, "configs", "mednext_s_mmwhs.yaml")]   # batch 2
+    src = os.path.join(work, "run")       # phase 6's MicFormer run
+    # (name, run dir, arguments, TRAIN_STEP key, batch, (steps run, step reached),
+    # the model's input channels)
+    plan = [("micformer gdl", "run8_gdl", micformer + ["--loss", "gdl"], False, 1, (4, 4), 2),
+            ("micformer pretrained focal", "run8_pretrained",
+             micformer + ["--pretrained", f"{src}:best_dice", "--loss", "focal"], False, 1,
+             (4, 4), 2),
+            ("mednext oversample-fg dice_topk", "run8_oversample",
+             mednext + ["--oversample-fg", "0.33", "--loss", "dice_topk"], "mednext", 2, (2, 2),
+             2),
+            ("mednext cascade mcc", "run8_cascade",
+             mednext + ["--cascade-prev-seg-dir", prev, "--loss", "mcc"], "mednext", 2, (2, 2),
+             9),
+            ("mednext single-modal process dice_bce", "run8_single",
+             mednext + ["--single-modal", "--worker-mode", "process", "--loss", "dice_bce"],
+             "mednext", 2, (2, 2), 1)]
+    res = {}
+    for name, rdir, args, key, batch, want_steps, channels in plan:
+        run = os.path.join(work, rdir)
+        res[name], trainer = train_run(name, common + args + ["--run-dir", run], key, batch,
+                                       want_steps)
+        model = trainer.model
+        stem = model.stem.weight if key == "mednext" else None
+        if stem is not None and stem.shape[1] != channels:
+            raise AssertionError(f"train {name}: stem takes {stem.shape[1]} channels, want "
+                                 f"{channels}")
+        if "--pretrained" in args:
+            # the same rule on a fresh model: out_conv alone is skipped
+            fresh = registry.build("micformer", device="cpu").state_dict()
+            _, report = load_pretrained_state(
+                fresh, CheckpointManager(src).restore_params_only("best_dice"))
+            logged = [json.loads(line) for line in open(os.path.join(run, "log.jsonl"))]
+            counts = next(r["pretrained"] for r in logged if "pretrained" in r)
+            skipped = sorted(e.split(":")[0] for e in report["skipped"])
+            res[name]["pretrained"] = counts
+            log(f"train {name}: pretrained {counts}, skipped {skipped}")
+            if (skipped != ["out_conv.bias", "out_conv.weight"] or report["missing"]
+                    or counts != {k: len(v) for k, v in report.items()}
+                    or counts["loaded"] != len(fresh) - 2):
+                raise AssertionError(f"train {name}: pretrained {counts}, skipped {skipped}, "
+                                     f"missing {report['missing']}")
+        del trainer, model
+        torch.cuda.empty_cache()
+
+    # find_lr: eight iterations of MicFormer with the topk loss
+    train_ds = splits[0]
+    loader = DataLoader(train_ds, batch_size=1, shuffle=True, seed=0, workers=2)
+    model = registry.build("micformer", device="cuda", generator=torch.Generator().manual_seed(0))
+    trainer = Trainer(model, TrainConfig(run_dir=os.path.join(work, "run8_find_lr"), loss="topk",
+                                         bf16=True, steps_per_epoch=len(loader),
+                                         roi=(size,) * 3))
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+
+    class Marked:
+        """The loader, noting the launch counts and the clock as each batch
+        is handed out (after the previous iteration's loss was read)."""
+
+        def __init__(self):
+            self.marks = []
+
+        def __iter__(self):
+            for item in loader:
+                self.marks.append((dict(LAUNCHES), time.perf_counter()))
+                yield item
+
+    marked = Marked()
+    reset_launches()
+    reset_all_routes()
+    lrs, losses = trainer.find_lr(marked, num_iters=8)
+    marks = marked.marks[:8] + [(dict(LAUNCHES), time.perf_counter())]
+    per_iter = [{k: b[0][k] - a[0][k] for k in KERNELS} for a, b in zip(marks, marks[1:])]
+    secs = [b[1] - a[1] for a, b in zip(marks, marks[1:])]
+    routes = all_routes()
+    unchanged = all(torch.equal(v, before[k]) for k, v in model.state_dict().items())
+    res["find_lr"] = {"lrs": lrs, "losses": losses, "s_per_iter": secs,
+                      "launches_per_iter": per_iter, "routes": routes}
+    log(f"find_lr micformer topk bf16: lrs {lrs}, smoothed losses {losses}, seconds an "
+        f"iteration {secs}, launches per iteration {per_iter[0]}, routes {routes}, weights "
+        f"unchanged {unchanged}")
+    want_routes = {k: ATTN_PATH_ROUTES if k in ("window_attention", "window_attention_backward")
+                   else [] for k in KERNELS}
+    if (len(lrs) != 8 or not all(np.isfinite(losses)) or lrs != sorted(lrs)
+            or per_iter != [TRAIN_STEP[False]] * 8 or routes != want_routes or not unchanged):
+        raise AssertionError(f"find_lr: lrs {lrs}, losses {losses}, launches {per_iter}, "
+                             f"routes {routes}, weights unchanged {unchanged}")
+
+    # a profiler trace of one training step names K1 and K1-bwd
+    images, labels, _ = next(iter(loader))
+    loader.close()
+    with profiling.trace(os.path.join(work, "trace")) as prof:
+        trainer.train_step(images, labels)
+    kernels = {}
+    for evt in prof.key_averages():
+        for name in ("window_attention_kernel", "window_attention_backward_kernel"):
+            if name in evt.key and "fused" not in evt.key:
+                kernels[name] = kernels.get(name, 0) + evt.count
+    res["trace"] = kernels
+    log(f"profiling.trace of one MicFormer step: K1 and K1-bwd kernel events {kernels}")
+    if kernels != {"window_attention_kernel": 96, "window_attention_backward_kernel": 96}:
+        raise AssertionError(f"trace: K1 and K1-bwd events {kernels} (want 96 each)")
+    del trainer, model
+    torch.cuda.empty_cache()
+
+    # predict from the cascade run, with the same previous-stage maps
+    out = os.path.join(work, "pred8_cascade")
+    reset_launches()
+    reset_all_routes()
+    recs = predict.main(["--data", data, "--cache", cache, "--target-shape", str(size),
+                         "--roi", str(size), "--sw-batch-size", "1", "--workers", "2",
+                         "--cascade-prev-seg-dir", prev, "--out", out,
+                         "--run-dirs", os.path.join(work, "run8_cascade")])
+    launches, routes = dict(LAUNCHES), all_routes()
+    res["cascade predict"] = {"case_s": [r["seconds"] for r in recs],
+                              "infer_s": [r["infer_seconds"] for r in recs],
+                              "launches": launches, "routes": routes}
+    log(f"predict cascade (9 input channels, f32, {size}³ roi {size}): cases "
+        f"{[r['patient_id'] for r in recs]}, seconds a case {res['cascade predict']['case_s']} "
+        f"(to the label map {res['cascade predict']['infer_s']}), launches {launches}, "
+        f"routes {routes}")
+    want = {k: len(recs) * n for k, n in PATHS["mednext"]["slice"].items()}
+    want_routes = {k: PATH_ROUTES if k == "dw_conv3" else [] for k in KERNELS}
+    if len(recs) != len(splits[2]) or launches != want or routes != want_routes:
+        raise AssertionError(f"predict cascade: {len(recs)} cases, launches {launches} (want "
+                             f"{want}), routes {routes} (want {want_routes})")
+    for r in recs:
+        seg = read_nifti(os.path.join(out, f"{r['patient_id']}_pred.nii.gz"))
+        if seg.shape != (size,) * 3 or seg.dtype != np.uint8 or seg.max() >= 8:
+            raise AssertionError(f"predict cascade: {r['patient_id']} segmentation "
+                                 f"{seg.shape} {seg.dtype} max {seg.max()}")
+    # the phase's runs in one CSV
+    dirs = [os.path.join(work, rdir) for _, rdir, *_ in plan] + [os.path.join(work,
+                                                                               "run8_find_lr")]
+    csv_path = run_export.export_runs_csv(dirs, os.path.join(work, "runs8.csv"))
+    with open(csv_path) as f:
+        rows = [line.rstrip("\n").split(",") for line in f][1:]
+    per_run = {os.path.basename(d): sum(r[0] == os.path.basename(d) for r in rows) for d in dirs}
+    res["export_rows"] = per_run
+    log(f"run_export: {len(rows)} rows in {csv_path}: {per_run}")
+    if not all(per_run[os.path.basename(d)] > 0 for d in dirs[:-1]):
+        raise AssertionError(f"run_export: rows per run {per_run}")
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"train, the rest (phase 8): {res['wall_s']:.2f} s")
+    return res
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -1297,6 +1507,7 @@ def main():
             del model_cpu
         train = phase_train(work)
         phase_predict(work)
+        phase_train_rest(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -1,9 +1,11 @@
 """Config: one dataclass tree, YAML loading and command-line overrides.
 
-Counterpart of `micformer_tpu/config.py`, restricted to the flags the
-training slices read, plus `--fused-attention` (the JAX package's
-MICFORMER_FUSED_ATTENTION=1), `--device` and `--model-kwargs`. Every flag
-defaults to None, so only a flag that is given overrides the YAML preset.
+Counterpart of `micformer_tpu/config.py`: every flag of the JAX training
+CLI, plus `--fused-attention` (the JAX package's
+MICFORMER_FUSED_ATTENTION=1), `--device` and `--model-kwargs`. `--mesh` and
+`--zero1` (data parallelism) parse but are not ported yet: the trainer
+raises on them. Every flag defaults to None, so only a flag that is given
+overrides the YAML preset.
 YAML needs PyYAML, imported only when a --cfg file is given; the resolved
 config is saved as JSON, and `run_model` rebuilds a run's model from it.
 """
@@ -21,7 +23,7 @@ from dataclasses import dataclass, field
 class ModelConfig:
     name: str = "micformer"
     num_classes: int = 8
-    in_channels: int = 2
+    in_channels: int = 2          # 1 single-modal; + num_classes - 1 under the cascade
     embed_dim: int = 48
     extra: dict = field(default_factory=dict)
     fused_attention: bool = False
@@ -35,6 +37,8 @@ class DataConfig:
     fold: int = 0
     normalisation: str = "minmax"
     workers: int = 2
+    worker_mode: str = "thread"         # thread | process (spawned)
+    single_modal: bool = False          # the CT channel alone
 
 
 @dataclass
@@ -56,6 +60,15 @@ class TrainerConfig:
     augment: str = "monai"
     extra_loss: str = "mdice"           # the train loss, as the JAX config names it
     deep_supervision: bool = False
+    # data parallelism, not ported yet: the trainer raises on either
+    mesh: str | None = None
+    zero1: bool = False
+    # nnU-Net's foreground-oversampled patches: the forced fraction of a batch
+    oversample_fg: float | None = None
+    # the cascade's full-resolution stage: <pid>_segFromPrevStage.npy files
+    cascade_prev_seg_dir: str | None = None
+    # "run_dir" or "run_dir:tag": seed the weights from another port run
+    pretrained: str | None = None
 
 
 @dataclass
@@ -158,6 +171,8 @@ def build_argparser(defaults: Config | None = None) -> argparse.ArgumentParser:
     p.add_argument("--cfg", default=None, help="yaml config file")
     p.add_argument("--resume", action="store_true", default=None)
     p.add_argument("--workers", type=int, default=None)
+    p.add_argument("--worker-mode", default=None, choices=["thread", "process"],
+                   help="fetch samples in threads (default) or in spawned processes")
     p.add_argument("--run-dir", default=None, help=f"default {d.train.run_dir}")
     p.add_argument("--target-shape", type=int, default=None,
                    help="cubic target shape (and validation roi), e.g. 32 for smoke runs")
@@ -170,15 +185,37 @@ def build_argparser(defaults: Config | None = None) -> argparse.ArgumentParser:
     p.add_argument("--augment", default=None, choices=["monai", "nnunet", "none"],
                    help="train-time transform stack (default monai; nnunet is "
                         "MedNeXt's native moreDA-style stack)")
-    p.add_argument("--loss", default=None, choices=["mdice", "dice_ce"],
+    p.add_argument("--loss", default=None,
+                   choices=["mdice", "dice_ce", "gdl", "topk", "focal", "mcc", "dice_topk",
+                            "dice_bce"],
                    help="train loss (default mdice; dice_ce is nnU-Net's softmax "
-                        "Dice + cross-entropy)")
+                        "Dice + cross-entropy, the rest its loss zoo)")
     p.add_argument("--deep-supervision", action="store_true", default=None,
                    help="train on the model's output pyramid (the model must "
                         "return one: --model-kwargs '{\"deep_supervision\": true}')")
     p.add_argument("--patience", type=int, default=None,
                    help="stop after N validations without improvement")
     p.add_argument("--grad-clip", type=float, default=None)
+    p.add_argument("--single-modal", action="store_true", default=None,
+                   help="train on the CT channel alone (the single-modal ablation)")
+    p.add_argument("--mesh", default=None,
+                   help="device mesh, e.g. 'data=4': not ported yet, raises")
+    p.add_argument("--zero1", action="store_true", default=None,
+                   help="ZeRO-1 optimizer-state sharding: not ported yet, raises")
+    p.add_argument("--oversample-fg", type=float, default=None,
+                   help="nnU-Net patch training: the fraction of a batch's patches "
+                        "forced to hold foreground (nnU-Net's default 0.33)")
+    p.add_argument("--pretrained", default=None,
+                   help="run dir (or run_dir:tag, default tag best_dice) of a port run "
+                        "whose checkpoint seeds the model: tensors of matching name and "
+                        "shape transfer, the segmentation heads do not")
+    p.add_argument("--cascade-prev-seg-dir", default=None,
+                   help="the cascade's full-resolution stage: directory of the low "
+                        "stage's <pid>_segFromPrevStage.npy, appended as one-hot input "
+                        "channels (pyramid-augmented in training)")
+    p.add_argument("--find-lr", action="store_true", default=None,
+                   help="run the LR range test instead of training: an exponential "
+                        "sweep whose smoothed losses go to log.jsonl")
     p.add_argument("--throughput", action="store_true", default=None,
                    help="time training steps (volumes/s) instead of training")
     return p
@@ -190,6 +227,8 @@ _ARG_MAP = {
     "cache": ("data", "cache_dir"),
     "fold": ("data", "fold"),
     "workers": ("data", "workers"),
+    "worker_mode": ("data", "worker_mode"),
+    "single_modal": ("data", "single_modal"),
     "model": ("model", "name"),
     "num_classes": ("model", "num_classes"),
     "fused_attention": ("model", "fused_attention"),
@@ -209,6 +248,11 @@ _ARG_MAP = {
     "deep_supervision": ("train", "deep_supervision"),
     "grad_clip": ("train", "grad_clip_norm"),
     "patience": ("train", "patience"),
+    "mesh": ("train", "mesh"),
+    "zero1": ("train", "zero1"),
+    "oversample_fg": ("train", "oversample_fg"),
+    "cascade_prev_seg_dir": ("train", "cascade_prev_seg_dir"),
+    "pretrained": ("train", "pretrained"),
 }
 
 

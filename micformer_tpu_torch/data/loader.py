@@ -1,4 +1,4 @@
-"""Host-side batching: shuffling, thread workers and prefetch.
+"""Host-side batching: shuffling, thread or process workers and prefetch.
 
 Counterpart of `micformer_tpu/data/loader.py`. A producer thread assembles
 compact batches ahead of the consumer: images as float16 and one-hot labels
@@ -30,6 +30,34 @@ def _proc_init(ds):
 
 def _proc_fetch(i):
     return _WORKER_DS[int(i)]
+
+
+class VisitSeeds:
+    """Per-visit generators of an indexable dataset: item i's k-th visit
+    draws from SeedSequence([seed, i, k]), so the draws do not depend on how
+    threads interleave. The visit counters live in the process that calls
+    it: under process workers each worker counts the visits it served, so
+    the draws depend on which worker fetched an item (as with the JAX
+    package's forked workers). Pickles for a spawned worker, which gets a
+    lock of its own."""
+
+    def __init__(self, seed: int):
+        self.seed = seed
+        self._lock = threading.Lock()
+        self._visits: dict = {}
+
+    def __getstate__(self):
+        return {k: v for k, v in self.__dict__.items() if k != "_lock"}
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._lock = threading.Lock()
+
+    def __call__(self, i: int) -> np.random.Generator:
+        with self._lock:
+            k = self._visits.get(i, 0)
+            self._visits[i] = k + 1
+        return np.random.default_rng(np.random.SeedSequence([self.seed, i, k]))
 
 
 def make_fetch_pool(dataset, workers: int, mode: str = "thread"):
@@ -67,17 +95,26 @@ def _stack_batch(samples):
 class DataLoader:
     """Deterministic batching over an indexable dataset: batch_size,
     shuffle (a fresh permutation per epoch from `seed`), and `workers` > 1
-    threads that fetch the samples of a batch concurrently (batch order does
-    not depend on the worker count). Up to PREFETCH batches wait ready."""
+    threads or spawned processes (`worker_mode`, see make_fetch_pool) that
+    fetch the samples of a batch concurrently (batch order does not depend
+    on the worker count). Up to PREFETCH batches wait ready. `close()`
+    shuts the workers down.
+
+    A process worker holds its own copy of the dataset, so a dataset's
+    `VisitSeeds` counts per worker (see there)."""
 
     PREFETCH = 2
 
-    def __init__(self, dataset, batch_size=1, shuffle=False, seed=0, workers=0):
+    def __init__(self, dataset, batch_size=1, shuffle=False, seed=0, workers=0,
+                 worker_mode="thread"):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.workers = int(workers)
-        self._pool = ThreadPoolExecutor(self.workers) if self.workers > 1 else None
+        self.worker_mode = worker_mode
+        self._pool = self._fetch_one = None
+        if self.workers > 1:
+            self._pool, self._fetch_one = make_fetch_pool(dataset, self.workers, worker_mode)
         self._rng = np.random.default_rng(seed)
 
     def __len__(self):
@@ -93,9 +130,14 @@ class DataLoader:
 
     def _fetch(self, chunk):
         if self._pool is not None:
-            futures = [self._pool.submit(self.dataset.__getitem__, int(j)) for j in chunk]
-            return [f.result() for f in futures]
+            return [f.result() for f in [self._fetch_one(j) for j in chunk]]
         return [self.dataset[int(j)] for j in chunk]
+
+    def close(self):
+        """Shut the worker pool down (its processes, in process mode)."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=True, cancel_futures=True)
+            self._pool = self._fetch_one = None
 
     def _produce(self, out_q: queue.Queue, stop: threading.Event):
         try:

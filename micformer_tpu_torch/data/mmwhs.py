@@ -89,18 +89,23 @@ def preprocess_case(case: CasePaths, target_shape=(128, 128, 128), normalisation
 
 class MMWHSDataset:
     """Cached MM-WHS dataset of sample dicts: patient_id, image [2, D, H, W]
-    float32, label [8, D, H, W] uint8 (the CT one-hot), seg_path,
-    crop_indexes, et_present=0, supervised=True. In training the random
-    pad-or-crop jitter to the target shape applies (the identity, as the
-    preprocessed volume has that shape)."""
+    float32 (with `single_modal`, the CT channel alone, [1, D, H, W]), label
+    [8, D, H, W] uint8 (the CT one-hot), seg_path, crop_indexes,
+    et_present=0, supervised=True. In training the random pad-or-crop
+    jitter to `patch_size` (default the target shape) applies: the identity
+    when the two are equal, as the preprocessed volume has the target
+    shape."""
 
     def __init__(self, cases, training=True, target_shape=(128, 128, 128),
-                 normalisation="minmax", cache_dir=None, seed=1234):
+                 normalisation="minmax", cache_dir=None, seed=1234, patch_size=None,
+                 single_modal=False):
         self.cases = list(cases)
         self.training = training
         self.target_shape = tuple(target_shape)
         self.normalisation = normalisation
         self.cache_dir = Path(cache_dir) if cache_dir else None
+        self.patch_size = tuple(patch_size) if patch_size else self.target_shape
+        self.single_modal = single_modal
         self._rng = np.random.default_rng(seed)
         if self.cache_dir:
             self.cache_dir.mkdir(parents=True, exist_ok=True)
@@ -125,12 +130,14 @@ class MMWHSDataset:
         case = self.cases[idx]
         image, label = self._load(case)
         image = np.asarray(image, dtype=np.float32)
+        if self.single_modal:
+            image = image[:1]
         label_ct = np.asarray(label[:8], dtype=np.uint8)
         nz = np.sum(image, axis=0)
         crop_indexes = iu.nonzero_bbox(nz) if nz.any() else ((0, 0), (0, 0), (0, 0))
         if self.training:
             image, label_ct = iu.pad_or_crop_image(
-                image, label_ct, target_size=self.target_shape, rng=self._rng)
+                image, label_ct, target_size=self.patch_size, rng=self._rng)
         return dict(patient_id=case.patient_id, image=image, label=label_ct,
                     seg_path=str(case.ct_label), crop_indexes=crop_indexes,
                     et_present=0, supervised=True)
@@ -138,9 +145,9 @@ class MMWHSDataset:
 
 def get_datasets(data_root, seed: int = 1234, fold: int = 0,
                  normalisation: str = "minmax", cache_dir=None,
-                 target_shape=(128, 128, 128)):
+                 target_shape=(128, 128, 128), single_modal=False):
     """(train, val, test) datasets from the 5-fold split of the cases under
-    data_root."""
+    data_root; `single_modal` keeps the CT channel alone."""
     cases = discover_cases(data_root)
     if not cases:
         raise FileNotFoundError(f"no ct_*_image.nii.gz under {data_root}")
@@ -149,6 +156,6 @@ def get_datasets(data_root, seed: int = 1234, fold: int = 0,
     def make(idx, training):
         return MMWHSDataset([cases[i] for i in idx], training=training,
                             target_shape=target_shape, normalisation=normalisation,
-                            cache_dir=cache_dir, seed=seed)
+                            cache_dir=cache_dir, seed=seed, single_modal=single_modal)
 
     return make(tr, True), make(va, False), make(te, False)

@@ -149,10 +149,12 @@ class MedNeXt(nn.Module):
 
 @registry.register("mednext", num_classes=8, size="S", kernel=3, deep_supervision=False)
 def build_mednext(num_classes=8, size="S", kernel=3, deep_supervision=False,
-                  faithful_up=False, n_channels=32):
+                  faithful_up=False, n_channels=32, in_channels=2):
     """`n_channels` (the stem width, 32 in every published size) narrows
-    the model for small runs on the CPU."""
+    the model for small runs on the CPU; `in_channels` is the stem's input
+    (1 single-modal; + num_classes - 1 under the cascade)."""
     cfg = _SIZES[size]
     return MedNeXt(num_classes=num_classes, n_channels=n_channels, kernel=kernel,
                    exp_r=cfg["exp_r"], block_counts=cfg["block_counts"],
-                   deep_supervision=deep_supervision, faithful_up=faithful_up)
+                   deep_supervision=deep_supervision, faithful_up=faithful_up,
+                   in_channels=in_channels)

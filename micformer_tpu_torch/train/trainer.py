@@ -7,9 +7,10 @@ MicFormer and MedNeXt training slices run:
     with T_max = epochs, the reference's quirk, or per epoch; poly;
     constant) as a LambdaLR multiplier, and optional clipping by global norm
     before the optimizer;
-  - the mdice or dice_ce (softmax Dice + CE) train loss, through the
-    deep-supervision wrapper when it is set and the model returns its
-    pyramid (else the pyramid's full-resolution output); in validation
+  - the eight train losses of the JAX trainer (mdice, dice_ce, gdl, topk,
+    focal, mcc, dice_topk, dice_bce), through the deep-supervision wrapper
+    when it is set and the model returns its pyramid (else the pyramid's
+    full-resolution output); in validation
     mdice_val_loss, meandice and the per-class hard Dice of the
     full-resolution output, through a direct forward when the volume equals
     the roi and sliding-window inference otherwise;
@@ -18,14 +19,18 @@ MicFormer and MedNeXt training slices run:
     optimizer state and the step count stay as they were, and
     max_consecutive_nan skips in a row halt the run;
   - `latest`, `best_dice` and `best_loss` checkpoints, resume, patience;
+  - `pretrained`: weights seeded from another port run's checkpoint
+    (`convert/pretrained.py`), after init and before a resume, which wins;
+  - `find_lr`, the LR range test;
   - bf16 as the JAX package's dtype=bf16, param_dtype=f32: the parameters
-    stay f32 and `torch.autocast` runs the forward and the loss in bf16.
-Configuration fields of the JAX trainer that this slice does not run raise
-when they are set.
+    stay f32 and `torch.autocast` runs the forward in bf16 (the losses
+    compute in f32).
+`zero1` and `mesh` (data parallelism) are not ported yet and raise.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -37,8 +42,9 @@ import torch
 
 from micformer_tpu_torch.kernels import LAUNCHES
 from micformer_tpu_torch.losses.dice import (
-    deep_supervision_loss, hard_dice_metric, mdice_loss, mdice_val_loss, one_hot,
-    softmax_dice_ce_loss,
+    deep_supervision_loss, dice_bce_loss, dice_topk_loss, focal_loss, generalized_dice_loss,
+    hard_dice_metric, mcc_loss, mdice_loss, mdice_val_loss, one_hot, softmax_dice_ce_loss,
+    topk_ce_loss,
 )
 from micformer_tpu_torch.losses.metrics import meandice
 from micformer_tpu_torch.train.checkpoint import CheckpointManager
@@ -47,7 +53,11 @@ from micformer_tpu_torch.train.meters import AverageMeter, ProgressMeter, Timer
 from micformer_tpu_torch.train.schedules import cosine_annealing, poly_lr
 
 
-LOSSES = {"mdice": mdice_loss, "dice_ce": softmax_dice_ce_loss}
+LOSSES = {"mdice": mdice_loss, "dice_ce": softmax_dice_ce_loss, "gdl": generalized_dice_loss,
+          "topk": topk_ce_loss, "focal": focal_loss, "mcc": mcc_loss,
+          "dice_topk": dice_topk_loss, "dice_bce": dice_bce_loss}
+UNPORTED_PARALLEL = ("data parallelism (--mesh, --zero1) is not ported yet: ROADMAP queue 1 "
+                     "item 3")
 
 
 def full_resolution(out):
@@ -68,7 +78,7 @@ class TrainConfig:
     scheduler_per_batch: bool = True    # the reference's quirk
     steps_per_epoch: int = 16
     optimizer: str = "adam"             # adam | adamw | sgd_nesterov
-    loss: str = "mdice"                 # mdice | dice_ce (nnU-Net preset)
+    loss: str = "mdice"                 # one of LOSSES
     deep_supervision: bool = False
     grad_clip_norm: float | None = None
     nan_guard: bool = True
@@ -87,19 +97,18 @@ class TrainConfig:
     patience_min_delta: float = 5e-4
     val_metric_alpha: float = 0.9
     bf16: bool = False
-    # fields of the JAX trainer that are not ported yet: setting one raises
+    # "run_dir" or "run_dir:tag" (default best_dice): seed the weights from
+    # another port run's checkpoint, heads excluded; a live resume wins
     pretrained: str | None = None
+    # data parallelism, not ported yet: setting either raises
     zero1: bool = False
     mesh: str | None = None
 
     def __post_init__(self):
-        for name in ("pretrained", "zero1", "mesh"):
-            if getattr(self, name):
-                raise NotImplementedError(f"TrainConfig.{name} is not ported yet")
+        if self.zero1 or self.mesh:
+            raise NotImplementedError(UNPORTED_PARALLEL)
         if self.loss not in LOSSES:
-            raise NotImplementedError(
-                f"loss {self.loss!r} is not ported yet: {sorted(LOSSES)} are; the rest "
-                "of the JAX loss zoo (gdl, topk, focal, mcc, dice_topk, dice_bce) is not")
+            raise ValueError(f"unknown loss {self.loss!r}; one of {sorted(LOSSES)}")
         if self.augment not in ("monai", "nnunet", "none"):
             raise ValueError(f"unknown augment {self.augment!r}")
         if self.optimizer not in ("adam", "adamw", "sgd_nesterov"):
@@ -182,16 +191,16 @@ class Trainer:
             labels = one_hot(labels, self.cfg.num_classes)
         return images, labels.float()
 
-    def _augment(self, images, labels):
+    def _augment(self, images, labels, generator=None):
+        generator = self.generator if generator is None else generator
         if self.cfg.augment == "monai":
             from micformer_tpu_torch.data.transforms import batched_train_augment
 
-            return batched_train_augment(self.generator, images, labels,
-                                         self.cfg.num_modalities)
+            return batched_train_augment(generator, images, labels, self.cfg.num_modalities)
         if self.cfg.augment == "nnunet":
             from micformer_tpu_torch.data.transforms import batched_nnunet_train_augment
 
-            return batched_nnunet_train_augment(self.generator, images, labels,
+            return batched_nnunet_train_augment(generator, images, labels,
                                                 self.cfg.num_modalities)
         return images, labels
 
@@ -258,11 +267,65 @@ class Trainer:
         self.step = int(payload["step"])
         return payload
 
+    def load_pretrained(self, spec: str) -> dict:
+        """Seed the model from `spec`, "run_dir" or "run_dir:tag" (default
+        best_dice), a port run's `ckpt_<tag>.pt`; prints and logs the counts
+        and returns the report."""
+        from micformer_tpu_torch.convert.pretrained import load_pretrained_state
+
+        src_dir, _, tag = str(spec).partition(":")
+        src = CheckpointManager(src_dir).restore_params_only(tag or "best_dice")
+        state, report = load_pretrained_state(self.model.state_dict(), src)
+        self.model.load_state_dict(state)
+        print(f"pretrained from {src_dir}: {len(report['loaded'])} tensors loaded, "
+              f"{len(report['skipped'])} skipped, {len(report['missing'])} missing", flush=True)
+        self._log({"pretrained": {k: len(v) for k, v in report.items()}})
+        return report
+
+    def find_lr(self, train_loader, num_iters: int = 100, init_lr: float = 1e-6,
+                final_lr: float = 1.0):
+        """The LR range test (nnU-Net's find_lr): `num_iters` SGD steps
+        (momentum 0.9, no Nesterov) at lr init_lr·mult^it rising to final_lr,
+        on a copy of the model with a fresh optimizer, so the trainer's own
+        weights and state stay as they are; no NaN guard, no clipping, no
+        schedule. Records the bias-corrected smoothed losses (beta 0.98),
+        writes {"find_lr": {"lrs", "losses"}} to log.jsonl and returns
+        (lrs, losses)."""
+        mult = (final_lr / init_lr) ** (1 / max(num_iters - 1, 1))
+        model = copy.deepcopy(self.model).train()
+        params = [p for p in model.parameters() if p.requires_grad]
+        opt = torch.optim.SGD(params, lr=init_lr, momentum=0.9)
+        generator = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
+        lrs, losses, avg, it = [], [], 0.0, 0
+        while it < num_iters:
+            for images, labels, _ in train_loader:
+                if it >= num_iters:
+                    break
+                lr = init_lr * mult ** it
+                for group in opt.param_groups:
+                    group["lr"] = lr
+                images, labels = self.prep_batch(images, labels)
+                images, labels = self._augment(images, labels, generator)
+                opt.zero_grad(set_to_none=True)
+                with self._autocast():
+                    loss = self.loss(model(images, generator=generator), labels)
+                loss.backward()
+                opt.step()
+                value = loss.item()
+                avg = 0.98 * avg + 0.02 * value if it else value
+                lrs.append(lr)
+                losses.append(avg / (1 - 0.98 ** (it + 1)))
+                it += 1
+        self._log({"find_lr": {"lrs": lrs, "losses": losses}})
+        return lrs, losses
+
     def fit(self, train_loader, val_loader=None, resume: bool = False, log_every: int = 10):
         cfg = self.cfg
         n_params = sum(p.numel() for p in self.params)
         print(f"model parameters: {n_params:,}", flush=True)
         self._log({"n_parameters": n_params})
+        if cfg.pretrained:
+            self.load_pretrained(cfg.pretrained)
 
         start_epoch = 0
         best_dice, best_loss = -1.0, float("inf")
