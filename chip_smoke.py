@@ -94,7 +94,31 @@ Phases; any error in any of them fails the run (non-zero exit, no result line):
                dice_bce (a 1-channel stem); run_export over the phase's runs;
                profiling.trace of one MicFormer step (96 K1 and 96 K1-bwd
                kernel events).
-  9. lines   - a {"kernels": [...]} line, then the {"ok": true, ...} line last.
+  9. parallel - data parallelism (torch.distributed): (a) NCCL at world size 1 in
+               this process: a DDP-wrapped full-width MicFormer step (b1, 128³, f32,
+               TF32 off) against the plain step (1e-6 of max |g|; bitwise
+               reported), the bf16 step's warm ms both ways (6 steps after one);
+               (b) two ranks on the one card over gloo (spawned with torchrun's
+               variables), each through cli/train.main --mesh data=2 at global
+               batch 2, bf16, one epoch: MicFormer (K1 96 + K1-bwd 96 a rank and
+               step, mma) and MedNeXt-S --zero1 (K3 36 + wgrad 18, tma and
+               volume); every loss finite and equal on both ranks; each run's
+               all-reduce events from a profiled step and one gradient-sized
+               all-reduce timed alone; then the ZeRO-1 run resumed in one process
+               without --mesh from its consolidated optimizer state; (c) a
+               two-rank MicFormer step at global b2 (f32, SGD-Nesterov) against
+               the single process's b2 step from (a)'s process: loss 1e-5, every
+               gradient leaf 1e-3 of its max |g|, parameters after the step 1e-6;
+               (d) cli/predict --sharded-tiles over two ranks from phase 6's
+               MicFormer run on phase 7's root (f32, 160³, roi 128, mirror TTA):
+               K1 launches a rank (its 4 of the 8 tiles) x 8 flips x 96, the
+               softmax of the first case within 1e-4 of phase 7's serial
+               prediction; (e) cli/train --model generic_unet (base 32, five (2,
+               2, 2) pools, k3) for one epoch, then cli/predict --engine spatial
+               --spatial-shards 2 from it, its logits within 2e-4 of one
+               process's forward of the checkpoint. Each run's warm ms a step,
+               first step, peak memory and wall a rank.
+ 10. lines   - a {"kernels": [...]} line, then the {"ok": true, ...} line last.
 """
 
 from __future__ import annotations
@@ -216,7 +240,7 @@ PATHS = {
 # 18 K3 launches for dx and 18 wgrad launches)
 TRAIN_STEP = {False: expect(window_attention=96, window_attention_backward=96),
               True: expect(fused_window_attention=96, fused_window_attention_backward=96),
-              "mednext": expect(dw_conv3=36, dw_conv3_wgrad=18)}
+              "mednext": expect(dw_conv3=36, dw_conv3_wgrad=18), "generic_unet": expect()}
 
 
 # the training phases' volumes: 2×128³, each model's published patch
@@ -1233,10 +1257,15 @@ def phase_predict(work):
     model.load_state_dict(torch.load(os.path.join(runs["run"], "ckpt_best_dice.pt"),
                                      map_location="cpu", weights_only=True)["params"])
     s = test_ds[0]
+    # cuDNN without TF32, so phase 9's sharded-tile prediction of this case
+    # (one tile a call) can be held against it at 1e-4
+    torch.backends.cudnn.allow_tf32 = False
     logits = sliding_window_inference(
         torch.tensor(s["image"][None], device="cuda"), (roi,) * 3, model, num_classes=8,
         overlap=0.5, sw_batch_size=sw, mirror_tta=True, tta_batched=False)
+    torch.backends.cudnn.allow_tf32 = True
     direct = torch.softmax(logits, dim=1)[0].cpu().numpy()
+    res["direct"] = {"patient_id": s["patient_id"], "softmax": direct}
     ddiff = float(np.abs(direct - softmax("micformer serial", s["patient_id"])).max())
     res["serial_vs_batched_max_abs"], res["serial_vs_direct_max_abs"] = float(diff), ddiff
     log(f"predict: softmax max |d| serial vs batched TTA {diff:.3g}, serial vs a direct "
@@ -1473,6 +1502,501 @@ def phase_train_rest(work):
     return res
 
 
+# phase 9: data parallelism. NCCL runs at world size 1 in this process; the
+# multi-rank runs put two ranks on the one card over gloo (NCCL takes one
+# rank a device). The ranks read their device and sizes from their spec, so
+# a CPU rehearsal can set PARALLEL_DEVICE "cpu", smaller sizes and zero
+# launch counts here.
+PARALLEL_DEVICE = "cuda"
+PARALLEL_SIZE = 128          # (a), (c): MicFormer's steps; (b), (e): the training volumes
+SHARDED_SIZE, SHARDED_ROI = 160, 128    # (d): phase 7's grid
+RANK_THREADS = 3             # torch threads a rank: two ranks and this process share 8 cores
+PARALLEL_TRAIN = {"micformer": expect(window_attention=96, window_attention_backward=96),
+                  "mednext": expect(dw_conv3=36, dw_conv3_wgrad=18),
+                  "generic_unet": expect()}
+
+
+def _set_tf32(on: bool):
+    torch.backends.cudnn.allow_tf32 = on
+    torch.backends.cuda.matmul.allow_tf32 = on
+
+
+def _grads(model):
+    return {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+
+
+def _params(model):
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def _random_batch(batch, size, seed):
+    """A loader batch: f16 images [batch, 2, size³], uint8 class maps."""
+    rng = np.random.default_rng(seed)
+    shape = (size,) * 3
+    return (torch.from_numpy(rng.uniform(0, 1, (batch, 2) + shape).astype(np.float16)),
+            torch.from_numpy(rng.integers(0, 8, (batch,) + shape).astype(np.uint8)))
+
+
+def _parity_trainer(run_dir, device, mesh=None, bf16=False):
+    """Full-width MicFormer from seed 0 under SGD-Nesterov (lr 1e-2),
+    constant schedule, no augmentation: the trainer of (a) and (c)."""
+    from micformer_tpu_torch import registry
+    from micformer_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    model = registry.build("micformer", device=device, generator=torch.Generator().manual_seed(0))
+    return Trainer(model, TrainConfig(run_dir=run_dir, optimizer="sgd_nesterov", lr=1e-2,
+                                      scheduler="constant", augment="none", mesh=mesh,
+                                      bf16=bf16))
+
+
+def _profiled_step(trainer, batch):
+    """One more train step under torch.profiler: its all-reduce events by
+    name (count, host ms, device ms), and their total over the backend's own
+    work events ("gloo:..." or "nccl:..."; the dispatcher's `c10d::` events
+    wrap them and are not added again)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    with profile(activities=acts) as prof:
+        trainer.train_step(*batch)
+    by_key, device = {}, 0.0
+    for evt in prof.key_averages():
+        key = evt.key.lower()
+        if "all_reduce" in key or "allreduce" in key:
+            dev = getattr(evt, "device_time_total", 0.0) / 1e3
+            by_key[evt.key] = (evt.count, evt.cpu_time_total / 1e3, dev)
+            if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
+                device += dev       # a collective's kernel (NCCL's), counted once
+    work = [v for k, v in by_key.items() if k.lower().startswith(("gloo:", "nccl:"))]
+    return {"events": sum(v[0] for v in work), "host_ms": sum(v[1] for v in work),
+            "device_ms": device, "by_name": by_key}
+
+
+def parallel_nccl(work):
+    """(a) NCCL at world size 1 in this process: a DDP-wrapped MicFormer
+    step (b1 at PARALLEL_SIZE³, f32, TF32 off) against the plain step from
+    the same weights and batch; the bf16 step's warm ms both ways (and the
+    DDP step's all-reduce); then the single-process b2 step that (c) is held
+    against, saved."""
+    from micformer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from micformer_tpu_torch.parallel import distributed
+
+    dev = distributed.initialize(PARALLEL_DEVICE, init_method=f"file://{work}/nccl_store",
+                                 world_size=1, rank=0)
+    backend = torch.distributed.get_backend()
+    res = {"backend": backend}
+    try:
+        _set_tf32(False)
+        batch = _random_batch(2, PARALLEL_SIZE, 9)
+        b1 = (batch[0][:1], batch[1][:1])
+        out = {}
+        for mesh in ("data=1", None):
+            tr = _parity_trainer(os.path.join(work, f"run9a_{mesh}"), dev, mesh)
+            reset_launches()
+            rec = tr.train_step(*b1)
+            out[mesh] = (rec["loss"], _grads(tr.model), dict(LAUNCHES), tr.net is not tr.model)
+            del tr
+        (l_ddp, g_ddp, n_ddp, wrapped), (l_plain, g_plain, n_plain, _) = out["data=1"], out[None]
+        bitwise = l_ddp == l_plain and all(torch.equal(g_ddp[n], g) for n, g in g_plain.items())
+        worst = max((g_ddp[n] - g).abs().max().item() for n, g in g_plain.items())
+        top = max(g.abs().max().item() for g in g_plain.values())
+        res.update(loss_ddp=l_ddp, loss_plain=l_plain, bitwise=bitwise,
+                   max_abs_grad_diff=worst, max_abs_grad=top, launches=n_ddp)
+        log(f"parallel (a) {backend} at world size 1, DDP-wrapped {wrapped}: MicFormer b1 "
+            f"{PARALLEL_SIZE}³ f32 step, loss DDP {l_ddp!r} plain {l_plain!r}, gradients "
+            f"{'bitwise equal' if bitwise else f'max |d| {worst:.3g}, not bitwise'} (max |g| "
+            f"{top:.3g}; limit 1e-6·max|g|), launches {n_ddp}")
+        want_backend = "nccl" if PARALLEL_DEVICE == "cuda" else "gloo"
+        if (not wrapped or backend != want_backend or abs(l_ddp - l_plain) > 1e-6 * abs(l_plain)
+                or worst > 1e-6 * top or n_ddp != PARALLEL_TRAIN["micformer"]
+                or n_plain != PARALLEL_TRAIN["micformer"]):
+            raise AssertionError(f"parallel (a): {res}, plain launches {n_plain}")
+        _set_tf32(True)
+        for mesh in ("data=1", None):
+            tr = _parity_trainer(os.path.join(work, f"run9a_bf16_{mesh}"), dev, mesh, bf16=True)
+            for _ in range(7):
+                tr.train_step(*b1)
+            kind = "ddp" if mesh else "plain"
+            res[f"bf16_first_step_s_{kind}"] = tr.history[0]["seconds"]
+            res[f"bf16_warm_ms_{kind}"] = 1e3 * statistics.mean(
+                r["seconds"] for r in tr.history[1:])
+            if mesh:
+                res["allreduce"] = _profiled_step(tr, b1)
+                res["grad_allreduce_ms"] = _time_allreduce(tr)
+            del tr
+        log(f"parallel (a) bf16 b1 step, warm ms (mean of 6): DDP {res['bf16_warm_ms_ddp']:.2f}, "
+            f"plain {res['bf16_warm_ms_plain']:.2f}; first step DDP "
+            f"{res['bf16_first_step_s_ddp']:.3f} s, plain {res['bf16_first_step_s_plain']:.3f} "
+            f"s; the DDP step's all-reduce events {res['allreduce']}; one gradient-sized "
+            f"all-reduce {res['grad_allreduce_ms']:.3f} ms")
+        _set_tf32(False)
+        tr = _parity_trainer(os.path.join(work, "run9c_single"), dev)
+        rec = tr.train_step(*batch)
+        torch.save({"loss": rec["loss"], "grads": _grads(tr.model), "params": _params(tr.model)},
+                   os.path.join(work, "parity_single.pt"))
+        del tr
+    finally:
+        _set_tf32(True)
+        distributed.shutdown()
+        if PARALLEL_DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    return res
+
+
+def _rank_run(device, fn):
+    """fn() with launches, routes and peak memory reset before and read
+    after: (its result, its numbers)."""
+    from micformer_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    reset_all_routes()
+    t0 = time.perf_counter()
+    out = fn()
+    return out, {"wall_s": time.perf_counter() - t0, "launches": dict(LAUNCHES),
+                 "routes": all_routes(),
+                 "max_memory_allocated": torch.cuda.max_memory_allocated() if cuda else 0}
+
+
+def _time_allreduce(trainer, reps=3):
+    """ms of one all-reduce of a flat f32 buffer as large as the model's
+    gradients: the host clock around dist.all_reduce and a synchronise, the
+    mean of `reps` after a warm-up. gloo runs its work on a thread of its
+    own, whose profiler events carry no host time; this times the
+    collective whole (without DDP's overlap with the backward)."""
+    buf = torch.zeros(sum(p.numel() for p in trainer.params), device=trainer.device)
+    cuda = trainer.device.type == "cuda"
+    times = []
+    for _ in range(reps + 1):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.distributed.all_reduce(buf)
+        if cuda:
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * statistics.mean(times[1:])
+
+
+def _rank_train(rank, world, device, spec, argv, local_batch):
+    """(b) cli/train.main(argv) on this rank: per step its loss, launches and
+    seconds; the all-reduce events of one more, profiled step; and one
+    gradient-sized all-reduce timed alone."""
+    from micformer_tpu_torch.cli import train
+
+    trainer, res = _rank_run(device, lambda: train.main(argv))
+    hist = trainer.history
+    res.update(losses=[r["loss"] for r in hist], skipped=[r["skipped"] for r in hist],
+               step_launches=[r["launches"] for r in hist], step=trainer.step,
+               first_step_s=hist[0]["seconds"], zero1=trainer.zero1,
+               ddp=trainer.net is not trainer.model,
+               warm_ms=1e3 * statistics.mean(r["seconds"] for r in hist[1:]))
+    res["allreduce"] = _profiled_step(trainer, _random_batch(local_batch, spec["size"], rank))
+    res["grad_allreduce_ms"] = _time_allreduce(trainer)
+    return res
+
+
+def _rank_parity(rank, world, device, spec):
+    """(c) the two-rank MicFormer step (f32, TF32 off) on this rank's rows of
+    the global batch of 2; rank 0 saves its gradients and parameters."""
+    from micformer_tpu_torch.parallel.mesh import rank_rows
+
+    _set_tf32(False)
+    try:
+        tr = _parity_trainer(os.path.join(spec["work"], "run9c_ranks"), device, f"data={world}")
+        images, labels = _random_batch(2, spec["size"], 9)
+        rows = rank_rows(2, rank, world)
+        rec, res = _rank_run(device, lambda: tr.train_step(images[rows], labels[rows]))
+        res.update(loss=rec["loss"], seconds=rec["seconds"])
+        if rank == 0:
+            torch.save({"grads": _grads(tr.model), "params": _params(tr.model)},
+                       os.path.join(spec["work"], "parity_ranks.pt"))
+        del tr
+    finally:
+        _set_tf32(True)
+    return res
+
+
+def _run_model(run, device):
+    """A run's model (config.json) with its best_dice weights."""
+    from micformer_tpu_torch import registry
+    from micformer_tpu_torch.config import run_model
+    from micformer_tpu_torch.train.checkpoint import CheckpointManager
+
+    name, kwargs = run_model(run)
+    model = registry.build(name, device=device, **kwargs)
+    model.load_state_dict(CheckpointManager(run).restore_params_only("best_dice"))
+    return model
+
+
+def _case(data, cache, size):
+    """The first test case of a root at size³: (patient id, [1, 2, size³])."""
+    from micformer_tpu_torch.data.mmwhs import get_datasets
+
+    s = get_datasets(data, cache_dir=cache, target_shape=(size,) * 3)[2][0]
+    return s["patient_id"], torch.tensor(np.asarray(s["image"], np.float32)[None])
+
+
+def _rank_predict(rank, world, device, spec, argv, run, data, cache, size, engine):
+    """(d), (e) cli/predict.main(argv) on this rank (cuDNN without TF32),
+    then the engine called directly on the root's first test case; rank 0
+    saves the direct call's f32 result."""
+    from micformer_tpu_torch.cli import predict
+    from micformer_tpu_torch.infer import sliding_window_inference_sharded
+    from micformer_tpu_torch.parallel.spatial import spatial_sharded_apply
+
+    _set_tf32(False)
+    try:
+        recs, res = _rank_run(device, lambda: predict.main(argv))
+        res["records"] = recs
+        model = _run_model(run, device)
+        pid, vol = _case(data, cache, size)
+        t0 = time.perf_counter()
+        if engine == "sharded":
+            out = torch.softmax(sliding_window_inference_sharded(
+                vol.to(device), (SHARDED_ROI,) * 3, model, mirror_tta=True), dim=1)
+        else:
+            out = spatial_sharded_apply(model, vol.to(device))
+        res["direct_s"] = time.perf_counter() - t0
+        if rank == 0:
+            np.save(os.path.join(spec["work"], f"{engine}_direct.npy"), out[0].cpu().numpy())
+        res["patient_id"] = pid
+        del model, out
+    finally:
+        _set_tf32(True)
+    return res
+
+
+RANK_TASKS = {"train": _rank_train, "parity": _rank_parity, "predict": _rank_predict}
+
+
+def _rank_main(rank, world, spec):
+    """One rank of phase 9: joins the group as torchrun's variables say
+    (gloo: the ranks share the card), runs the spec's tasks in order and
+    saves their results."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(spec["port"]))
+    torch.set_num_threads(RANK_THREADS)
+    from micformer_tpu_torch.parallel import distributed
+
+    device = distributed.initialize(spec["device"])
+    out = {"device": str(device), "backend": torch.distributed.get_backend()}
+    try:
+        for kind, name, kw in spec["tasks"]:
+            t0 = time.perf_counter()
+            out[name] = RANK_TASKS[kind](rank, world, device, spec, **kw)
+            print(f"rank {rank}: {name} in {time.perf_counter() - t0:.2f} s", flush=True)
+        torch.save(out, os.path.join(spec["work"], f"rank9_{rank}.pt"))
+    finally:
+        distributed.shutdown()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _check_rank_train(name, outs, key, steps, zero1):
+    """(b): every rank ran `steps` steps (to step `steps`), each loss finite,
+    applied and equal on both ranks, each step's launches exact, the routes
+    the path's, DDP on and ZeRO-1 as asked."""
+    want = PARALLEL_TRAIN[key]
+    dw = PATH_ROUTES if key == "mednext" else []
+    k1 = ATTN_PATH_ROUTES if key == "micformer" else []
+    want_routes = {k: dw if k.startswith("dw_conv3") else k1 if k.startswith("window") else []
+                   for k in KERNELS}
+    for r, o in enumerate(outs):
+        log(f"parallel (b) {name}, rank {r}: {len(o['losses'])} steps to step {o['step']}, "
+            f"losses {o['losses']}, first step {o['first_step_s']:.3f} s, warm "
+            f"{o['warm_ms']:.2f} ms/step, peak {o['max_memory_allocated'] / 2 ** 30:.2f} GiB, "
+            f"wall {o['wall_s']:.2f} s, launches per step {o['step_launches']}, routes "
+            f"{o['routes']}, ZeRO-1 {o['zero1']}, all-reduce events of a profiled step "
+            f"{o['allreduce']}, one gradient-sized all-reduce {o['grad_allreduce_ms']:.2f} ms")
+        if (len(o["losses"]) != steps or o["step"] != steps or not o["ddp"]
+                or o["zero1"] != zero1 or any(o["skipped"])
+                or not all(np.isfinite(o["losses"])) or o["step_launches"] != [want] * steps
+                or o["routes"] != want_routes):
+            raise AssertionError(f"parallel (b) {name}, rank {r}: {o} (want {want} a step, "
+                                 f"routes {want_routes})")
+    if outs[0]["losses"] != outs[1]["losses"]:
+        raise AssertionError(f"parallel (b) {name}: the ranks' losses differ: "
+                             f"{[o['losses'] for o in outs]}")
+
+
+def phase_parallel(work, direct):
+    """Phase 9: data parallelism, see the module docstring. `direct`: phase
+    7's serial f32 softmax of the first test case of its root."""
+    from micformer_tpu_torch.data.nifti import read_nifti
+    from micformer_tpu_torch.infer.sliding_window import compute_steps_monai
+
+    t_phase = time.perf_counter()
+    size = PARALLEL_SIZE
+    res = {"nccl": parallel_nccl(work)}
+    data, cache = os.path.join(work, "mmwhs"), os.path.join(work, "cache")
+    dev = ["--device", PARALLEL_DEVICE]
+    common = dev + ["--data", data, "--cache", cache, "--target-shape", str(size), "--bf16",
+                    "--val", "1", "--workers", "2"]
+    mednext = ["--cfg", os.path.join(ROOT, "configs", "mednext_s_mmwhs.yaml")]   # batch 2
+    runs = {k: os.path.join(work, f"run9_{k}") for k in ("micformer", "mednext", "unet")}
+    # (e) GenericUNet at the registry's defaults, one epoch in one process
+    res["generic_unet train"], trainer = train_run(
+        "generic_unet", common + ["--epochs", "1", "--model", "generic_unet", "--run-dir",
+                                  runs["unet"]],
+        "generic_unet", 1, (4, 4))
+    del trainer
+    if PARALLEL_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    mesh = ["--epochs", "1", "--mesh", "data=2", "--batch-size", "2"]
+    pdata, pcache = os.path.join(work, "mmwhs_predict"), os.path.join(work, "cache_predict")
+    spec = {"work": work, "port": _free_port(), "device": PARALLEL_DEVICE, "size": size,
+            "tasks": [
+                ("train", "micformer", dict(argv=common + mesh + [
+                    "--model", "micformer", "--run-dir", runs["micformer"]], local_batch=1)),
+                ("train", "mednext", dict(argv=common + mednext + mesh + [
+                    "--zero1", "--run-dir", runs["mednext"]], local_batch=1)),
+                ("parity", "parity", {}),
+                ("predict", "sharded", dict(
+                    argv=dev + ["--data", pdata, "--cache", pcache, "--target-shape",
+                                str(SHARDED_SIZE), "--roi", str(SHARDED_ROI), "--overlap", "0.5",
+                                "--mirror-tta", "--sharded-tiles", "--save-softmax",
+                                "--run-dirs", os.path.join(work, "run"),
+                                "--out", os.path.join(work, "pred9_tiles")],
+                    run=os.path.join(work, "run"), data=pdata, cache=pcache, size=SHARDED_SIZE,
+                    engine="sharded")),
+                ("predict", "spatial", dict(
+                    argv=dev + ["--data", data, "--cache", cache, "--target-shape", str(size),
+                                "--engine", "spatial", "--spatial-shards", "2", "--save-softmax",
+                                "--run-dirs", runs["unet"],
+                                "--out", os.path.join(work, "pred9_spatial")],
+                    run=runs["unet"], data=data, cache=cache, size=size, engine="spatial")),
+            ]}
+    t0 = time.perf_counter()
+    torch.multiprocessing.start_processes(_rank_main, args=(2, spec), nprocs=2,
+                                          start_method="spawn", join=True)
+    res["ranks_wall_s"] = time.perf_counter() - t0
+    outs = [torch.load(os.path.join(work, f"rank9_{r}.pt"), weights_only=False) for r in (0, 1)]
+    log(f"parallel: two ranks on {[o['device'] for o in outs]}, backend "
+        f"{[o['backend'] for o in outs]}, {res['ranks_wall_s']:.2f} s")
+    if [o["backend"] for o in outs] != ["gloo", "gloo"]:
+        raise AssertionError(f"parallel: the ranks' backends {[o['backend'] for o in outs]}")
+
+    # (b) MicFormer, and MedNeXt-S under ZeRO-1: two steps a rank (4 cases,
+    # global batch 2), then MedNeXt-S resumed in one process for an epoch
+    _check_rank_train("micformer", [o["micformer"] for o in outs], "micformer", 2, False)
+    _check_rank_train("mednext --zero1", [o["mednext"] for o in outs], "mednext", 2, True)
+    res["train"] = {k: [o[k] for o in outs] for k in ("micformer", "mednext")}
+    ckpt = torch.load(os.path.join(runs["mednext"], "ckpt_latest.pt"), map_location="cpu",
+                      weights_only=True)
+    n_params = len(ckpt["params"])
+    opt = ckpt["opt_state"]
+    steps_held = sorted({int(s["step"]) for s in opt["state"].values()})
+    log(f"parallel (b) the ZeRO-1 run's checkpoint: {len(opt['state'])} optimizer states for "
+        f"{n_params} parameter tensors, Adam steps {steps_held}, group keys "
+        f"{sorted(k for k in opt['param_groups'][0] if k != 'params')}")
+    if len(opt["state"]) != n_params or steps_held != [2] or "betas" not in opt["param_groups"][0]:
+        raise AssertionError(f"parallel (b): the ZeRO-1 checkpoint is not consolidated: "
+                             f"{len(opt['state'])} states, steps {steps_held}")
+    res["mednext resume"], trainer = train_run(
+        "mednext --zero1 run resumed in one process",
+        common + ["--epochs", "2", "--resume"] + mednext + ["--run-dir", runs["mednext"]],
+        "mednext", 2, (2, 4))
+    steps_now = sorted({int(s["step"]) for s in trainer.optimizer.state.values()})
+    if type(trainer.optimizer) is not torch.optim.Adam or steps_now != [4]:
+        raise AssertionError(f"parallel (b) resume: {type(trainer.optimizer)}, steps {steps_now}")
+    del trainer
+
+    # (c) the two-rank step against the single process's, f32
+    single = torch.load(os.path.join(work, "parity_single.pt"), weights_only=True)
+    ranks_ = torch.load(os.path.join(work, "parity_ranks.pt"), weights_only=True)
+    losses = [o["parity"]["loss"] for o in outs]
+    grad_err = max((ranks_["grads"][n] - g).abs().max().item() / max(g.abs().max().item(), 1e-12)
+                   for n, g in single["grads"].items())
+    param_err = max((ranks_["params"][k] - v).abs().max().item()
+                    for k, v in single["params"].items())
+    res["parity"] = {"losses": losses, "single_loss": single["loss"], "grad_err": grad_err,
+                     "param_err": param_err, "ranks": [o["parity"] for o in outs]}
+    log(f"parallel (c) MicFormer {size}³ f32 SGD-Nesterov, two ranks of b1 against one process "
+        f"of b2: losses {losses} vs {single['loss']!r}, max over leaves of max|dg|/max|g| "
+        f"{grad_err:.3g} (limit 1e-3), parameters after the step max |d| {param_err:.3g} "
+        f"(limit 1e-6); rank step s {[o['parity']['seconds'] for o in outs]}, peak GiB "
+        f"{[o['parity']['max_memory_allocated'] / 2 ** 30 for o in outs]}")
+    if (losses[0] != losses[1] or abs(losses[0] - single["loss"]) > 1e-5 * abs(single["loss"])
+            or grad_err > 1e-3 or param_err > 1e-6
+            or any(o["parity"]["launches"] != PARALLEL_TRAIN["micformer"] for o in outs)):
+        raise AssertionError(f"parallel (c): {res['parity']}")
+
+    # (d) --sharded-tiles: each rank four of the 8 tiles, 8 flips each
+    tiles = math.prod(len(a) for a in compute_steps_monai((SHARDED_SIZE,) * 3,
+                                                          (SHARDED_ROI,) * 3, 0.5))
+    want = expect(window_attention=-(-tiles // 2) * 8 * PATHS["micformer"]["slice"][
+        "window_attention"])
+    shard = [o["sharded"] for o in outs]
+    got = np.load(os.path.join(work, "sharded_direct.npy"))
+    d_err = float(np.abs(got - direct["softmax"]).max())
+    pid = direct["patient_id"]
+    f16 = np.load(os.path.join(work, "pred9_tiles", f"{pid}_softmax.npz"))["softmax"]
+    f_err = float(np.abs(f16.astype(np.float32) - direct["softmax"]).max())
+    res["sharded"] = {"ranks": [{k: v for k, v in o.items() if k != "records"} for o in shard],
+                      "case_s": [[r["seconds"] for r in o["records"]] for o in shard],
+                      "direct_err": d_err, "file_err": f_err}
+    for r, o in enumerate(shard):
+        log(f"parallel (d) cli/predict --sharded-tiles rank {r}: cases "
+            f"{[x['patient_id'] for x in o['records']]}, seconds a case "
+            f"{[x['seconds'] for x in o['records']]} (to the label map "
+            f"{[x['infer_seconds'] for x in o['records']]}), launches per case "
+            f"{[x['launches'] for x in o['records']]}, routes {o['routes']}, peak "
+            f"{o['max_memory_allocated'] / 2 ** 30:.2f} GiB, wall {o['wall_s']:.2f} s; the "
+            f"direct call {o['direct_s']:.2f} s")
+    log(f"parallel (d) softmax of {pid} against phase 7's serial f32 prediction: sharded "
+        f"f32 max |d| {d_err:.3g} (limit 1e-4), the CLI's f16 file {f_err:.3g} (limit 2e-3)")
+    f32_routes = {k: ["ffma"] if k == "window_attention" and want[k] else [] for k in KERNELS}
+    if (d_err > 1e-4 or f_err > 2e-3 or direct["patient_id"] != shard[0]["patient_id"]
+            or any(len(o["records"]) != 2 or any(x["launches"] != want for x in o["records"])
+                   or o["routes"] != f32_routes for o in shard)):
+        raise AssertionError(f"parallel (d): {res['sharded']} (want {want} a case)")
+
+    # (e) --engine spatial against one process's forward of the same checkpoint
+    spatial = [o["spatial"] for o in outs]
+    got = torch.from_numpy(np.load(os.path.join(work, "spatial_direct.npy")))
+    _set_tf32(False)
+    model = _run_model(runs["unet"], PARALLEL_DEVICE)
+    pid, vol = _case(data, cache, size)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want_logits = model(vol.to(PARALLEL_DEVICE))[0].cpu()
+    single_s = time.perf_counter() - t0
+    _set_tf32(True)
+    s_err = float((got - want_logits).abs().max())
+    seg = read_nifti(os.path.join(work, "pred9_spatial", f"{pid}_pred.nii.gz"))
+    res["spatial"] = {"ranks": [{k: v for k, v in o.items() if k != "records"} for o in spatial],
+                      "max_abs_err": s_err, "max_abs_logit": float(want_logits.abs().max()),
+                      "single_s": single_s}
+    for r, o in enumerate(spatial):
+        log(f"parallel (e) cli/predict --engine spatial --spatial-shards 2 rank {r}: cases "
+            f"{[x['patient_id'] for x in o['records']]}, seconds "
+            f"{[x['seconds'] for x in o['records']]} (to the label map "
+            f"{[x['infer_seconds'] for x in o['records']]}), peak "
+            f"{o['max_memory_allocated'] / 2 ** 30:.2f} GiB; the direct call {o['direct_s']:.2f} s")
+    log(f"parallel (e) GenericUNet {size}³ f32 logits, two slabs against one forward "
+        f"({single_s:.2f} s): max |d| {s_err:.3g} (limit 2e-4; max |logit| "
+        f"{res['spatial']['max_abs_logit']:.3g}); label map {seg.shape} {seg.dtype}")
+    if (s_err > 2e-4 or seg.shape != (size,) * 3 or seg.dtype != np.uint8
+            or any(len(o["records"]) != 1 or o["launches"] != expect() for o in spatial)):
+        raise AssertionError(f"parallel (e): {res['spatial']}")
+    del model
+
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"parallel (phase 9): {res['wall_s']:.2f} s")
+    return res
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -1506,8 +2030,9 @@ def main():
             serve[name] = phase_serve(name, model_cpu, work)
             del model_cpu
         train = phase_train(work)
-        phase_predict(work)
+        predicted = phase_predict(work)
         phase_train_rest(work)
+        phase_parallel(work, predicted["direct"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -1,6 +1,7 @@
 """Batch prediction CLI: sliding window, fold ensemble, mirror TTA.
 
-Counterpart of the `3d` engine of `micformer_tpu/cli/predict.py`: for each
+Counterpart of the `3d` and `spatial` engines of
+`micformer_tpu/cli/predict.py`: for each
 case of the split, each fold's model (one run directory a fold, weights from
 `ckpt_<tag>.pt`) predicts by sliding window (mirror TTA optional, serial or,
 with MICFORMER_TTA_BATCHED=1, batched), the folds' softmax is averaged, and
@@ -21,13 +22,26 @@ stage's `<pid>_segFromPrevStage.npy` (foreground labels) as input channels;
 resamples the class probabilities to each case's source grid before the
 argmax and writes the source affine.
 
-The other engines (2d, p3d, spatial) and `--sharded-tiles` raise
-NotImplementedError: they wait for ROADMAP queues 3 and 4. A single process
-predicts every case (the JAX package's `shard_cases` is the identity there).
+Several ranks (torchrun; see `parallel/distributed.py`) share the work:
+  - by default the cases go round-robin by rank (`shard_cases`), each rank
+    writing its own;
+  - `--sharded-tiles`: every rank predicts every case with the tile grid
+    split over the ranks (`infer/sharded.py`, one tile a predictor call,
+    --sw-batch-size unused as in JAX), and the primary rank writes;
+  - `--engine spatial`: one whole-volume forward of a GenericUNet run with
+    D slabbed over the ranks (`parallel/spatial.py`; --spatial-shards, when
+    given, must equal the world size; mirror TTA does not apply, as in
+    JAX), and the primary rank writes.
+With one process these are the 3d engine at sw_batch 1 and the whole-volume
+forward. The 2d and p3d engines raise NotImplementedError: they wait for
+ROADMAP queue 4.
 
     python -m micformer_tpu_torch.cli.predict --data <root> --cache <cache> \
         --run-dirs runs/fold0 runs/fold1 --out preds --target-shape 160 \
         --roi 128 --sw-batch-size 4 --mirror-tta --largest-cc --save-softmax
+    torchrun --nproc-per-node 2 -m micformer_tpu_torch.cli.predict ... --sharded-tiles
+    torchrun --nproc-per-node 2 -m micformer_tpu_torch.cli.predict --data <root> \
+        --run-dirs runs/generic_unet --engine spatial --target-shape 128
 """
 
 from __future__ import annotations
@@ -42,7 +56,6 @@ import time
 import numpy as np
 import torch
 
-_QUEUE_3 = "ROADMAP queue 3 (parallelism: parallel/spatial.py, infer/sharded.py)"
 _QUEUE_4 = "ROADMAP queue 4 (the 2D zoo and infer/sliding_window_2d.py)"
 
 
@@ -124,9 +137,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sw-batch-size", type=int, default=2)
     p.add_argument("--step-mode", default="monai", choices=["monai", "nnunet"])
     p.add_argument("--engine", default="3d", choices=["3d", "2d", "p3d", "spatial"],
-                   help="3d: volumetric tiles (the only engine ported)")
-    p.add_argument("--spatial-shards", type=int, default=None, help="not ported")
-    p.add_argument("--sharded-tiles", action="store_true", help="not ported")
+                   help="3d: volumetric tiles; spatial: one whole-volume GenericUNet "
+                        "forward with D slabbed over the ranks; 2d, p3d: not ported")
+    p.add_argument("--spatial-shards", type=int, default=None,
+                   help="ranks of --engine spatial (default and only value: the world size)")
+    p.add_argument("--sharded-tiles", action="store_true",
+                   help="split each case's tile grid over the ranks")
     p.add_argument("--pseudo3d-slices", type=int, default=None, help="not ported")
     p.add_argument("--mirror-tta", action="store_true",
                    help="8-way mirror ensemble; MICFORMER_TTA_BATCHED=1 runs the "
@@ -161,10 +177,7 @@ def _refuse_unported(args):
     naming the ROADMAP queue that ports it."""
     for given, option, where in (
             (args.engine in ("2d", "p3d"), f"--engine {args.engine}", _QUEUE_4),
-            (args.pseudo3d_slices is not None, "--pseudo3d-slices", _QUEUE_4),
-            (args.engine == "spatial", "--engine spatial", _QUEUE_3),
-            (args.spatial_shards is not None, "--spatial-shards", _QUEUE_3),
-            (args.sharded_tiles, "--sharded-tiles", _QUEUE_3)):
+            (args.pseudo3d_slices is not None, "--pseudo3d-slices", _QUEUE_4)):
         if given:
             raise NotImplementedError(f"predict {option} is not ported yet: {where}")
 
@@ -179,15 +192,27 @@ def main(argv=None):
     from micformer_tpu_torch.data.image_utils import resize_trilinear
     from micformer_tpu_torch.data.mmwhs import get_datasets
     from micformer_tpu_torch.data.nifti import read_nifti, write_nifti
-    from micformer_tpu_torch.infer import sliding_window_inference
+    from micformer_tpu_torch.infer import (
+        sliding_window_inference, sliding_window_inference_sharded,
+    )
     from micformer_tpu_torch.kernels import LAUNCHES
+    from micformer_tpu_torch.parallel import distributed
+    from micformer_tpu_torch.parallel.mesh import is_primary, shard_cases
+    from micformer_tpu_torch.parallel.spatial import spatial_sharded_apply
     from micformer_tpu_torch.pipeline.postprocess import remove_all_but_largest_cc
     from micformer_tpu_torch.train.checkpoint import CheckpointManager
     from micformer_tpu_torch.train.logging import save_overlay_png
 
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
-    device = registry.resolve_device(args.device)
+    device = distributed.initialize(registry.resolve_device(args.device))
+    rank, world = distributed.world()
+    spatial = args.engine == "spatial"
+    if args.spatial_shards is not None and (not spatial or args.spatial_shards != world):
+        raise SystemExit(f"--spatial-shards {args.spatial_shards}: --engine spatial runs on "
+                         f"every rank, {world} here")
+    # every rank predicts every case (and the primary writes), or each its own
+    collective = spatial or args.sharded_tiles
 
     os.makedirs(args.out, exist_ok=True)
     ts = (args.target_shape,) * 3
@@ -195,6 +220,8 @@ def main(argv=None):
     ds = val_ds if args.split == "val" else test_ds
 
     model_name, kwargs = run_model(args.run_dirs[0], args.model, args.num_classes)
+    if spatial and model_name != "generic_unet":
+        raise SystemExit(f"--engine spatial runs generic_unet, not {model_name}")
     base = registry.build(model_name, device=device, **kwargs)
     models = []
     for rd in args.run_dirs:
@@ -207,32 +234,17 @@ def main(argv=None):
             out = model(win)
             return out[0] if isinstance(out, (list, tuple)) else out
 
-        return sliding_window_inference(
-            vol, (args.roi,) * 3, predictor, num_classes=args.num_classes,
-            overlap=args.overlap, step_mode=args.step_mode,
-            sw_batch_size=args.sw_batch_size, mirror_tta=args.mirror_tta)
+        if spatial:
+            return spatial_sharded_apply(model, vol)
+        common = dict(num_classes=args.num_classes, overlap=args.overlap,
+                      step_mode=args.step_mode, mirror_tta=args.mirror_tta)
+        if args.sharded_tiles:
+            return sliding_window_inference_sharded(vol, (args.roi,) * 3, predictor, **common)
+        return sliding_window_inference(vol, (args.roi,) * 3, predictor,
+                                        sw_batch_size=args.sw_batch_size, **common)
 
-    records = []
-    for i, s in _prefetch_cases(ds, range(len(ds)), workers=args.workers,
-                                worker_mode=args.worker_mode):
-        t0 = time.perf_counter()
-        before = dict(LAUNCHES)
-        pid = s["patient_id"]
-        img = np.asarray(s["image"], np.float32)
-        if args.cascade_prev_seg_dir:
-            prev = np.load(os.path.join(args.cascade_prev_seg_dir,
-                                        f"{pid}_segFromPrevStage.npy"))
-            prev = resize_seg_nearest(prev, img.shape[1:])
-            onehot = seg_to_onehot(prev, list(range(1, args.num_classes)))
-            img = np.concatenate([img, onehot.astype(img.dtype)], axis=0)
-        vol = torch.tensor(img[None], device=device)
-        probs = None
-        for m in models:
-            sm = torch.softmax(infer(m, vol), dim=1)
-            probs = sm if probs is None else probs + sm
-        probs = probs / len(models)
-        seg = probs.argmax(dim=1)[0].to(torch.uint8).cpu().numpy()
-        t_infer = time.perf_counter() - t0
+    def write_case(i, pid, img, probs, seg):
+        """Write the case's files; returns the label map's path."""
         probs_np = (probs[0].cpu().numpy() if args.save_softmax or args.native_geometry
                     else None)
         if args.save_softmax:
@@ -256,11 +268,40 @@ def main(argv=None):
         if args.overlays:
             save_overlay_png(img, seg_model_space,
                              os.path.join(args.out, f"{pid}_overlay.png"))
+        return out_path
+
+    cases = range(len(ds)) if collective else shard_cases(range(len(ds)), rank, world)
+    writes = is_primary() or not collective
+    records = []
+    for i, s in _prefetch_cases(ds, cases, workers=args.workers,
+                                worker_mode=args.worker_mode):
+        t0 = time.perf_counter()
+        before = dict(LAUNCHES)
+        pid = s["patient_id"]
+        img = np.asarray(s["image"], np.float32)
+        if args.cascade_prev_seg_dir:
+            prev = np.load(os.path.join(args.cascade_prev_seg_dir,
+                                        f"{pid}_segFromPrevStage.npy"))
+            prev = resize_seg_nearest(prev, img.shape[1:])
+            onehot = seg_to_onehot(prev, list(range(1, args.num_classes)))
+            img = np.concatenate([img, onehot.astype(img.dtype)], axis=0)
+        vol = torch.tensor(img[None], device=device)
+        probs = None
+        for m in models:
+            sm = torch.softmax(infer(m, vol), dim=1)
+            probs = sm if probs is None else probs + sm
+        probs = probs / len(models)
+        seg = probs.argmax(dim=1)[0].to(torch.uint8).cpu().numpy()
+        t_infer = time.perf_counter() - t0
+        out_path = None
+        if writes:
+            out_path = write_case(i, pid, img, probs, seg)
         rec = {"patient_id": pid, "seconds": time.perf_counter() - t0,
                "infer_seconds": t_infer,
                "launches": {k: LAUNCHES[k] - before[k] for k in LAUNCHES}}
         records.append(rec)
-        print(f"{pid}: wrote {out_path} in {rec['seconds']:.3f} s", flush=True)
+        print(f"{pid}: {f'wrote {out_path}' if writes else f'rank {rank} done'} in "
+              f"{rec['seconds']:.3f} s", flush=True)
     return records
 
 

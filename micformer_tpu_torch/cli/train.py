@@ -11,6 +11,8 @@
         --cascade-prev-seg-dir <low-stage dir> [--single-modal] [--oversample-fg 0.33] \
         [--pretrained <run>[:tag]] [--loss gdl|topk|focal|mcc|dice_topk|dice_bce] \
         [--worker-mode process] [--find-lr]
+    torchrun --nproc-per-node 2 -m micformer_tpu_torch.cli.train --data <root> \
+        --mesh data=2 --batch-size 2 [--zero1] [--device cpu]
 
 Counterpart of `micformer_tpu/cli/train.py` (the third line above is
 MedNeXt's nnU-Net preset): the 5-fold MM-WHS split under --data
@@ -23,9 +25,17 @@ spawned process workers; the `Trainer` with latest / best checkpoints in
 input's channels (1 or 2 modalities, plus num_classes - 1 under the
 cascade) unless --model-kwargs sets `in_channels`; the count is recorded in
 config.json's `model.extra`, so `config.run_model` rebuilds the model for
-cli/predict. MicFormer reads CT and MR (channels 0 and 1), so it refuses
---single-modal. `--mesh` and `--zero1` raise: data parallelism is not
-ported yet.
+cli/predict (GenericUNet's likewise). MicFormer reads CT and MR (channels
+0 and 1), so it refuses --single-modal.
+
+Data parallelism: `--mesh data=N` trains on N ranks of a process group
+(`parallel/distributed.py`: torchrun's variables, or the JAX package's
+COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID), each on its rows of the
+global batch --batch-size, which N must divide; N must equal the world
+size. `--zero1` splits the optimizer state over the ranks (a no-op without
+a mesh of data >= 2, as in JAX). config.json records the mesh; the primary
+rank writes it, the checkpoints and the logs, and a run resumes at any
+world size, with or without --zero1.
 
 Runs on the card unless --device cpu is given, and raises when CUDA is
 asked for and missing. `--throughput` times training steps instead (two
@@ -49,15 +59,27 @@ def main(argv=None):
     from micformer_tpu_torch.config import build_argparser, config_from_args, save_config
     from micformer_tpu_torch.data.loader import DataLoader
     from micformer_tpu_torch.data.mmwhs import get_datasets
-    from micformer_tpu_torch.train.trainer import UNPORTED_PARALLEL, TrainConfig, Trainer
+    from micformer_tpu_torch.parallel import distributed
+    from micformer_tpu_torch.parallel.mesh import is_primary, make_mesh, parse_mesh
+    from micformer_tpu_torch.train.trainer import TrainConfig, Trainer
 
     args = build_argparser().parse_args(argv)
     cfg = config_from_args(args)
-    if cfg.train.mesh or cfg.train.zero1:
-        raise NotImplementedError(UNPORTED_PARALLEL)
+    rank, world = 0, 1
+    if cfg.train.mesh:
+        data = parse_mesh(cfg.train.mesh).get("data")
+        if data and cfg.train.batch_size % data:
+            raise SystemExit(f"--batch-size {cfg.train.batch_size} not divisible by mesh "
+                             f"data={data}")
     if not cfg.data.data_root:
         raise SystemExit("--data is required")
-    device = registry.resolve_device(args.device)
+    device = distributed.initialize(registry.resolve_device(args.device))
+    if cfg.train.mesh:
+        try:
+            mesh = make_mesh(cfg.train.mesh)
+        except ValueError as e:
+            raise SystemExit(f"--mesh {cfg.train.mesh}: {e}") from None
+        rank, world = mesh.data_index, mesh.data
     cascade = cfg.train.cascade_prev_seg_dir
     n_mod = 1 if cfg.data.single_modal else 2
 
@@ -71,13 +93,14 @@ def main(argv=None):
     elif cfg.model.fused_attention:
         raise SystemExit("--fused-attention applies to --model micformer only")
     cfg.model.in_channels = n_mod + (cfg.model.num_classes - 1 if cascade else 0)
-    if cfg.model.name == "mednext":
+    if cfg.model.name in ("mednext", "generic_unet"):
         kwargs.setdefault("in_channels", cfg.model.in_channels)
         cfg.model.in_channels = kwargs["in_channels"]
         cfg.model.extra = {**cfg.model.extra, "in_channels": kwargs["in_channels"]}
 
     os.makedirs(cfg.train.run_dir, exist_ok=True)
-    save_config(cfg, os.path.join(cfg.train.run_dir, "config.json"))
+    if is_primary():
+        save_config(cfg, os.path.join(cfg.train.run_dir, "config.json"))
     train_ds, val_ds, _ = get_datasets(
         cfg.data.data_root, seed=cfg.train.seed, fold=cfg.data.fold,
         cache_dir=cfg.data.cache_dir or None, target_shape=tuple(cfg.data.target_shape),
@@ -98,7 +121,7 @@ def main(argv=None):
             num_classes=cfg.model.num_classes, seed=cfg.train.seed)
     train_loader = DataLoader(train_ds, batch_size=cfg.train.batch_size, shuffle=True,
                               seed=cfg.train.seed, workers=cfg.data.workers,
-                              worker_mode=cfg.data.worker_mode)
+                              worker_mode=cfg.data.worker_mode, rank=rank, world=world)
     val_loader = DataLoader(val_ds, batch_size=1, workers=cfg.data.workers,
                             worker_mode=cfg.data.worker_mode)
     try:
@@ -116,9 +139,11 @@ def main(argv=None):
             run_dir=cfg.train.run_dir, augment=cfg.train.augment,
             num_modalities=n_mod if cascade else None, pretrained=cfg.train.pretrained,
             roi=tuple(cfg.infer.roi), sw_overlap=cfg.infer.overlap,
-            sw_batch_size=cfg.infer.sw_batch_size, bf16=bool(cfg.train.bf16))
+            sw_batch_size=cfg.infer.sw_batch_size, bf16=bool(cfg.train.bf16),
+            mesh=cfg.train.mesh, zero1=bool(cfg.train.zero1))
         trainer = Trainer(model, tcfg)
-        print(f"train: {cfg.model.name} on {device}, {len(train_ds)} training and "
+        print(f"train: {cfg.model.name} on {device} (rank {rank} of data={world}"
+              f"{', ZeRO-1' if trainer.zero1 else ''}), {len(train_ds)} training and "
               f"{len(val_ds)} validation samples at {tuple(cfg.data.target_shape)}, "
               f"{cfg.model.in_channels} input channels, batch {cfg.train.batch_size}, "
               f"{'bf16' if tcfg.bf16 else 'f32'}, {tcfg.loss} loss"

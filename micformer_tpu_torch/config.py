@@ -2,10 +2,9 @@
 
 Counterpart of `micformer_tpu/config.py`: every flag of the JAX training
 CLI, plus `--fused-attention` (the JAX package's
-MICFORMER_FUSED_ATTENTION=1), `--device` and `--model-kwargs`. `--mesh` and
-`--zero1` (data parallelism) parse but are not ported yet: the trainer
-raises on them. Every flag defaults to None, so only a flag that is given
-overrides the YAML preset.
+MICFORMER_FUSED_ATTENTION=1), `--device` and `--model-kwargs`. `--mesh
+data=N` and `--zero1` set data parallelism (see `cli/train.py`). Every flag
+defaults to None, so only a flag that is given overrides the YAML preset.
 YAML needs PyYAML, imported only when a --cfg file is given; the resolved
 config is saved as JSON, and `run_model` rebuilds a run's model from it.
 """
@@ -60,7 +59,8 @@ class TrainerConfig:
     augment: str = "monai"
     extra_loss: str = "mdice"           # the train loss, as the JAX config names it
     deep_supervision: bool = False
-    # data parallelism, not ported yet: the trainer raises on either
+    # "data=N": data parallelism over N ranks; zero1 splits the optimizer
+    # state over them
     mesh: str | None = None
     zero1: bool = False
     # nnU-Net's foreground-oversampled patches: the forced fraction of a batch
@@ -199,9 +199,11 @@ def build_argparser(defaults: Config | None = None) -> argparse.ArgumentParser:
     p.add_argument("--single-modal", action="store_true", default=None,
                    help="train on the CT channel alone (the single-modal ablation)")
     p.add_argument("--mesh", default=None,
-                   help="device mesh, e.g. 'data=4': not ported yet, raises")
+                   help="data parallelism, 'data=N': N ranks (the world size), each "
+                        "on its rows of the global batch")
     p.add_argument("--zero1", action="store_true", default=None,
-                   help="ZeRO-1 optimizer-state sharding: not ported yet, raises")
+                   help="ZeRO-1: split the optimizer state over the mesh's data ranks "
+                        "(a no-op below data=2)")
     p.add_argument("--oversample-fg", type=float, default=None,
                    help="nnU-Net patch training: the fraction of a batch's patches "
                         "forced to hold foreground (nnU-Net's default 0.33)")

@@ -3,9 +3,11 @@
 Inverts the layout rules of `micformer_tpu/convert/torch_import.py`:
   - Dense kernel [in, out]                 -> Linear.weight = kernel.T
   - Conv kernel [kd, kh, kw, in, out]      -> Conv3d.weight = permute(4, 3, 0, 1, 2)
+    ([kh, kw, in, out] -> Conv2d.weight = permute(3, 2, 0, 1))
   - ConvTranspose kernel [kd, kh, kw, in, out] (flax correlates the dilated
     input with the kernel as is)           -> ConvTranspose3d.weight =
                                               permute(3, 4, 0, 1, 2), spatially flipped
+    (2D likewise: permute(2, 3, 0, 1), flipped)
   - Conv3x3ViaDot taps [27, in, out]       -> Conv3d.weight[:, :, dz, dy, dx] =
                                               taps[dz*9 + dy*3 + dx].T
   - LayerNorm, InstanceNorm scale / bias   -> weight / bias
@@ -31,6 +33,7 @@ _RENAMES = {
     "PatchEmbed3D": {"Conv_0": "proj", "LayerNorm_0": "norm"},
     "PatchMergingConv": {"Conv_0": "conv", "LayerNorm_0": "norm"},
     "PatchExpandConv": {"ConvTranspose_0": "conv", "LayerNorm_0": "norm"},
+    "ConvInLRelu": {"Conv_0": "conv", "InstanceNorm_0": "norm"},
 }
 
 
@@ -46,10 +49,14 @@ def _convert_leaf(mod: nn.Module, key: str, a: np.ndarray, path: str):
         return "weight", a.T
     if isinstance(mod, nn.ConvTranspose3d):
         return "weight", a.transpose(3, 4, 0, 1, 2)[:, :, ::-1, ::-1, ::-1]
+    if isinstance(mod, nn.ConvTranspose2d):
+        return "weight", a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
     if isinstance(mod, nn.Conv3d):
         if a.ndim == 3:                       # Conv3x3ViaDot taps [27, in, out]
             return "weight", a.reshape(3, 3, 3, *a.shape[1:]).transpose(4, 3, 0, 1, 2)
         return "weight", a.transpose(4, 3, 0, 1, 2)
+    if isinstance(mod, nn.Conv2d):
+        return "weight", a.transpose(3, 2, 0, 1)
     raise KeyError(f"{path}: no rule for a kernel on {type(mod).__name__}")
 
 

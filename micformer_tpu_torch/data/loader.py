@@ -101,12 +101,25 @@ class DataLoader:
     shuts the workers down.
 
     A process worker holds its own copy of the dataset, so a dataset's
-    `VisitSeeds` counts per worker (see there)."""
+    `VisitSeeds` counts per worker (see there).
+
+    Data parallelism: with `world` > 1 the loader of rank `rank` yields
+    only its rows [r·b/W, (r+1)·b/W) of each global batch b that a single
+    process's loader yields (the same seed gives the same order on every
+    rank), and fetches only those samples; `len()` is the same on every
+    rank. A global batch, the last one included, that W does not divide is
+    refused here, before the first step."""
 
     PREFETCH = 2
 
     def __init__(self, dataset, batch_size=1, shuffle=False, seed=0, workers=0,
-                 worker_mode="thread"):
+                 worker_mode="thread", rank=0, world=1):
+        n = len(dataset)
+        for b in {batch_size, n % batch_size or batch_size}:
+            if b % world:
+                raise ValueError(f"a global batch of {b} ({n} samples in batches of "
+                                 f"{batch_size}) does not split over data={world} ranks")
+        self.rank, self.world = rank, world
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -126,7 +139,9 @@ class DataLoader:
             self._rng = np.random.default_rng(self._rng.integers(0, 2**63))
             self._rng.shuffle(order)
         for i in range(0, len(order), self.batch_size):
-            yield order[i: i + self.batch_size]
+            chunk = order[i: i + self.batch_size]
+            per = len(chunk) // self.world
+            yield chunk[self.rank * per:(self.rank + 1) * per]
 
     def _fetch(self, chunk):
         if self._pool is not None:

@@ -11,6 +11,7 @@ read memory maps.
 from __future__ import annotations
 
 import os
+import threading
 from dataclasses import dataclass
 from glob import glob
 from pathlib import Path
@@ -38,6 +39,18 @@ def kfold_split(n_items: int, n_splits: int = 5, seed: int = 1234, fold: int = 0
     train_idx = np.arange(n_items)[mask]
     half = len(held) // 2
     return train_idx, held[:half], held[half:]
+
+
+def _save_atomic(path: Path, array: np.ndarray):
+    """np.save through a temporary file renamed into place, so a reader
+    (another rank or worker sharing the cache, or a later run after an
+    interrupted write) finds the whole file or none."""
+    tmp = path.with_name(f"{path.stem}.{os.getpid()}.{threading.get_ident()}.tmp.npy")
+    try:
+        np.save(tmp, array)
+        os.replace(tmp, path)
+    finally:
+        tmp.unlink(missing_ok=True)
 
 
 @dataclass
@@ -122,8 +135,8 @@ class MMWHSDataset:
         if img_p.exists() and lab_p.exists():
             return np.load(img_p, mmap_mode="r"), np.load(lab_p, mmap_mode="r")
         image, label = preprocess_case(case, self.target_shape, self.normalisation)
-        np.save(img_p, image)
-        np.save(lab_p, label)
+        _save_atomic(img_p, image)
+        _save_atomic(lab_p, label)
         return image, label
 
     def __getitem__(self, idx):

@@ -106,10 +106,20 @@ def apply_train_augment(images, labels, draws: dict, num_modalities=None):
     return _join_modalities(mod, rest), labels
 
 
-def batched_train_augment(generator, images, labels, num_modalities=None):
-    """The train stack with independent draws per sample."""
-    draws = draw_train_augment(generator, images.shape[0], images.device)
-    return apply_train_augment(images, labels, draws, num_modalities)
+def _rows(draws: dict, rows, batch: int) -> dict:
+    """The draws of rows [first, first + batch) of a global batch."""
+    first = rows[0] if rows else 0
+    return {k: v[first:first + batch] for k, v in draws.items()}
+
+
+def batched_train_augment(generator, images, labels, num_modalities=None, rows=None):
+    """The train stack with independent draws per sample. rows = (first,
+    total): the batch is rows [first, first + B) of a global batch of
+    `total`, whose draws are drawn, and those rows' kept (a data-parallel
+    rank's share of what a single process draws)."""
+    B = images.shape[0]
+    draws = draw_train_augment(generator, rows[1] if rows else B, images.device)
+    return apply_train_augment(images, labels, _rows(draws, rows, B), num_modalities)
 
 
 def val_normalize(image, num_modalities=None):
@@ -302,8 +312,10 @@ def apply_nnunet_augment(images, labels, draws: dict, num_modalities=None):
     return images, labels
 
 
-def batched_nnunet_train_augment(generator, images, labels, num_modalities=None):
-    """The nnunet stack with independent draws per sample."""
+def batched_nnunet_train_augment(generator, images, labels, num_modalities=None, rows=None):
+    """The nnunet stack with independent draws per sample; `rows` as in
+    batched_train_augment."""
+    B = images.shape[0]
     mod, _ = _split_modalities(images, num_modalities)
-    draws = draw_nnunet_augment(generator, images.shape[0], mod.shape[1:], images.device)
-    return apply_nnunet_augment(images, labels, draws, num_modalities)
+    draws = draw_nnunet_augment(generator, rows[1] if rows else B, mod.shape[1:], images.device)
+    return apply_nnunet_augment(images, labels, _rows(draws, rows, B), num_modalities)

@@ -12,19 +12,73 @@ element-wise ops, reductions, softmax and top-k, none of which autocast
 lowers, so under bf16 autocast it still computes in float32.
 
 Dice-style losses reduce over batch and space jointly, and top-k takes its
-k % over the whole flattened batch: a data-parallel step must all-reduce
-their partial sums (and gather the top-k), not average per-rank losses.
+k % over the whole flattened batch. Inside `global_batch(group)` (the
+data-parallel trainer's step, each rank holding equal rows of the batch)
+every such sum is all-reduced over the group's ranks before any ratio, the
+voxel counts of the means are the global ones, and top-k gathers each
+rank's local top-k_global and keeps the top k_global of those: every rank
+then computes the loss of the global batch, as the JAX step does under
+GSPMD. The all-reduces are differentiable, and their backward sums the
+gradient over the ranks, so each rank's gradient is W times its share of
+the global loss's; DistributedDataParallel's mean over the ranks then
+gives the global loss's gradient.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
 import torch.nn.functional as F
+
+from micformer_tpu_torch.parallel.mesh import all_gather, all_reduce_sum
+
+# the process group whose ranks hold the global batch, inside global_batch
+_GROUP = contextvars.ContextVar("global_batch_group", default=None)
+
+
+@contextlib.contextmanager
+def global_batch(group=None):
+    """Losses computed inside reduce over the global batch of `group`'s
+    ranks (default: the whole process group); see the module docstring."""
+    import torch.distributed as dist
+
+    token = _GROUP.set(group or dist.group.WORLD)
+    try:
+        yield
+    finally:
+        _GROUP.reset(token)
 
 
 def _reduce_axes(x: torch.Tensor) -> tuple:
     """Batch and spatial axes: every axis but the channel axis 1."""
     return (0,) + tuple(range(2, x.dim()))
+
+
+def _sum(x: torch.Tensor, axes) -> torch.Tensor:
+    """x summed over `axes`, and over the ranks inside global_batch."""
+    s = x.sum(axes)
+    group = _GROUP.get()
+    return s if group is None else all_reduce_sum(s, group)
+
+
+def _world() -> int:
+    import torch.distributed as dist
+
+    group = _GROUP.get()
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def _voxels(x: torch.Tensor) -> int:
+    """The voxel count of the (global) batch of x [B, C, ...]: every rank
+    holds as many rows."""
+    return x.numel() // x.shape[1] * _world()
+
+
+def _mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over every axis of x [B, ...] of the (global) batch."""
+    return _sum(x, tuple(range(x.dim()))) / (x.numel() * _world())
 
 
 def soft_dice_per_channel(logits, targets, smooth: float = 1.0):
@@ -33,8 +87,8 @@ def soft_dice_per_channel(logits, targets, smooth: float = 1.0):
     probs = torch.sigmoid(logits.float())
     t = targets.float()
     axes = _reduce_axes(logits)
-    inter = (probs * t).sum(axes)
-    denom = (probs * probs).sum(axes) + (t * t).sum(axes)
+    inter = _sum(probs * t, axes)
+    denom = _sum(probs * probs, axes) + _sum(t * t, axes)
     return 1.0 - (2.0 * inter + smooth) / (denom + smooth)
 
 
@@ -44,7 +98,7 @@ def bce_per_channel(logits, targets):
     x = logits.float()
     t = targets.float()
     bce = x.clamp_min(0) - x * t + torch.log1p(torch.exp(-x.abs()))
-    return bce.mean(_reduce_axes(logits))
+    return _sum(bce, _reduce_axes(logits)) / _voxels(logits)
 
 
 def mdice_loss(logits, targets):
@@ -85,12 +139,12 @@ def softmax_dice_ce_loss(logits, target, ce_weight=1.0, dice_weight=1.0, smooth=
     t = target.float()
     probs = torch.softmax(x, dim=1)
     axes = _reduce_axes(x)
-    inter = (probs * t).sum(axes)
-    denom = probs.sum(axes) + t.sum(axes)
+    inter = _sum(probs * t, axes)
+    denom = _sum(probs, axes) + _sum(t, axes)
     dice = (2.0 * inter + smooth) / (denom + smooth)
     if not include_background:
         dice = dice[1:]
-    ce = -(t * torch.log_softmax(x, dim=1)).sum(1).mean()
+    ce = _mean(-(t * torch.log_softmax(x, dim=1)).sum(1))
     return dice_weight * (1.0 - dice.mean()) + ce_weight * ce
 
 
@@ -119,23 +173,28 @@ def generalized_dice_loss(logits, target, smooth=1e-5, square_volumes=False):
     x = torch.softmax(logits.float(), dim=1)
     t = target.float()
     axes = _reduce_axes(logits)
-    vol = t.sum(axes)
+    vol = _sum(t, axes)
     w = 1.0 / (vol * vol).clamp_min(1e-6)
-    inter = (x * t).sum(axes)
+    inter = _sum(x * t, axes)
     if square_volumes:
-        denom = (x * x).sum(axes) + (t * t).sum(axes)
+        denom = _sum(x * x, axes) + _sum(t * t, axes)
     else:
-        denom = x.sum(axes) + t.sum(axes)
+        denom = _sum(x, axes) + _sum(t, axes)
     return 1.0 - (2.0 * (w * inter).sum() + smooth) / ((w * denom).sum() + smooth)
 
 
 def topk_ce_loss(logits, target, k_percent: float = 10.0):
     """nnU-Net's TopKLoss: the mean of the k % largest per-voxel
     cross-entropies of the whole batch, k = max(1, int(N·k%/100)) of its N
-    voxels."""
+    voxels. Inside global_batch N is the global count, and the top k of the
+    ranks' local top-k values are taken."""
     ce = -(target.float() * torch.log_softmax(logits.float(), dim=1)).sum(1).reshape(-1)
-    k = max(1, int(ce.shape[0] * k_percent / 100.0))
-    return torch.topk(ce, k, sorted=False).values.mean()
+    k = max(1, int(ce.shape[0] * _world() * k_percent / 100.0))
+    top = torch.topk(ce, min(k, ce.shape[0]), sorted=False).values
+    group = _GROUP.get()
+    if group is not None:
+        top = torch.topk(all_gather(top, group).reshape(-1), k, sorted=False).values
+    return top.mean()
 
 
 def focal_loss(logits, target, gamma: float = 2.0, alpha: float = 0.25):
@@ -143,7 +202,7 @@ def focal_loss(logits, target, gamma: float = 2.0, alpha: float = 0.25):
     Σ_c t_c · -alpha (1 - p_c)^gamma log p_c."""
     logp = torch.log_softmax(logits.float(), dim=1)
     focal = -alpha * (1 - logp.exp()) ** gamma * logp
-    return (target.float() * focal).sum(1).mean()
+    return _mean((target.float() * focal).sum(1))
 
 
 def mcc_loss(logits, target, smooth: float = 1.0):
@@ -153,11 +212,11 @@ def mcc_loss(logits, target, smooth: float = 1.0):
     x = torch.softmax(logits.float(), dim=1)
     t = target.float()
     axes = _reduce_axes(logits)
-    n_vox = float(logits.numel() // logits.shape[1])
-    tp = (x * t).sum(axes) / n_vox
-    fp = (x * (1 - t)).sum(axes) / n_vox
-    fn = ((1 - x) * t).sum(axes) / n_vox
-    tn = ((1 - x) * (1 - t)).sum(axes) / n_vox
+    n_vox = float(_voxels(logits))
+    tp = _sum(x * t, axes) / n_vox
+    fp = _sum(x * (1 - t), axes) / n_vox
+    fn = _sum((1 - x) * t, axes) / n_vox
+    tn = _sum((1 - x) * (1 - t), axes) / n_vox
     num = tp * tn - fp * fn
     den = torch.sqrt(((tp + fp) * (tp + fn) * (tn + fp) * (tn + fn)).clamp_min(1e-12))
     return 1.0 - ((num + smooth) / (den + smooth)).mean()

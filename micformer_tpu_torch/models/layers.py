@@ -19,6 +19,10 @@ stand for, so `convert.from_flax` maps the flax tree onto them.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import math
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -32,6 +36,21 @@ from micformer_tpu_torch.ops.windows import (
 )
 
 LN_EPS = 1e-5
+
+# (first row, global batch size) of this rank's rows, inside batch_rows
+_ROWS = contextvars.ContextVar("batch_rows", default=None)
+
+
+@contextlib.contextmanager
+def batch_rows(first: int, total: int):
+    """Inside, DropPath draws its masks for a global batch of `total` rows
+    and keeps the rows from `first` on: a data-parallel rank holding those
+    rows draws what a single process draws for them."""
+    token = _ROWS.set((first, total))
+    try:
+        yield
+    finally:
+        _ROWS.reset(token)
 
 
 def conv_cl(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -63,7 +82,8 @@ class Mlp(nn.Module):
 class DropPath(nn.Module):
     """Stochastic depth on a residual branch: identity in eval mode; in train
     mode each sample is kept with probability 1 - rate (and scaled by
-    1 / keep), drawn from the caller's generator."""
+    1 / keep), drawn from the caller's generator (for the global batch
+    inside `batch_rows`)."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
@@ -73,9 +93,11 @@ class DropPath(nn.Module):
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        first, total = _ROWS.get() or (0, x.shape[0])
+        shape = (total,) + (1,) * (x.dim() - 1)
         dev = generator.device if generator is not None else x.device
         mask = torch.rand(shape, generator=generator, device=dev).to(x.device) < keep
+        mask = mask[first:first + x.shape[0]]
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -178,8 +200,8 @@ class PatchExpandConv(nn.Module):
 
 
 class InstanceNorm(nn.Module):
-    """Affine instance norm of [B, C, D, H, W] over D, H, W (MedNeXt's
-    GroupNorm with one group per channel). Statistics in f32 as the JAX
+    """Affine instance norm of [B, C, *spatial] over the spatial axes
+    (MedNeXt's GroupNorm with one group per channel). Statistics in f32 as the JAX
     default computes them, E[x²] − E[x]² clamped at 0; output in x's dtype."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
@@ -189,12 +211,12 @@ class InstanceNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
 
     def forward(self, x):
-        dims = (2, 3, 4)
-        n = x.shape[2] * x.shape[3] * x.shape[4]
+        dims = tuple(range(2, x.dim()))
+        n = math.prod(x.shape[2:])
         xf = x.float()
         mean = xf.sum(dims, keepdim=True) / n
         var = (xf.square().sum(dims, keepdim=True) / n - mean.square()).clamp_min(0.0)
-        shape = (1, -1, 1, 1, 1)
+        shape = (1, -1) + (1,) * len(dims)
         # ((x - mean) * rsqrt(var + eps)) * weight + bias as one pass over x
         # with per-(b, c) factors
         scale = torch.rsqrt(var + self.eps) * self.weight.float().view(shape)

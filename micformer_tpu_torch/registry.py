@@ -46,10 +46,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     from micformer_tpu_torch.models.layers import InstanceNorm
 
     for mod in model.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv3d, nn.ConvTranspose3d)):
+        if isinstance(mod, (nn.Linear, nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d,
+                            nn.ConvTranspose3d)):
             w = mod.weight
             k = w[0, 0].numel()
-            fan_in = (w.shape[0] if isinstance(mod, nn.ConvTranspose3d)
+            fan_in = (w.shape[0] if isinstance(mod, (nn.ConvTranspose2d, nn.ConvTranspose3d))
                       else w.shape[1]) * k
             std = fan_in ** -0.5 / _TRUNC_STD
             with torch.no_grad():

@@ -6,6 +6,10 @@ optimizer state, step, epoch, best_dice, best_loss, ...), beside a
 `ckpt_<tag>.meta.json` sidecar with the schema version, tag, metric and time.
 `keep_best_k` also archives every `best*` save as `ckpt_<tag>_k<step>` and
 keeps the K best of them by metric.
+
+Under data parallelism every rank calls `save` (the trainer's payload may
+take a collective to build), the primary rank alone writes, and every rank
+returns once the file is written, so a rank that reads it next finds it.
 """
 
 from __future__ import annotations
@@ -17,6 +21,9 @@ import time
 from typing import Any
 
 import torch
+
+from micformer_tpu_torch.parallel.distributed import barrier
+from micformer_tpu_torch.parallel.mesh import is_primary
 
 # Schema version of the payload the trainer writes: 1 held params,
 # opt_state and step; 2 adds epoch, best_dice and best_loss.
@@ -36,7 +43,13 @@ class CheckpointManager:
         return os.path.join(self.run_dir, f"ckpt_{tag}.meta.json")
 
     def save(self, tag: str, state: Any, metric: float | None = None):
-        """Write `state` under `tag` (atomically: a temporary file renamed)."""
+        """Write `state` under `tag` (atomically: a temporary file renamed)
+        on the primary rank; every rank waits for the file."""
+        if is_primary():
+            self._write(tag, state, metric)
+        barrier()
+
+    def _write(self, tag: str, state: Any, metric: float | None):
         path = self._path(tag)
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save(state, tmp)

@@ -6,6 +6,9 @@ go to `<run_dir>/events.jsonl`, one {"tag", "value", "step"} object a line,
 and per-class validation Dice is also appended to `<run_dir>/val.txt`. The
 overlay PNG (8-bit RGB) is encoded here with zlib and struct, so neither PIL
 nor matplotlib is needed.
+
+Under data parallelism only the primary rank writes scalars and val.txt;
+`MetricsWriter.scalar` and `save_metrics` do nothing on the others.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from micformer_tpu_torch.parallel.mesh import is_primary
 
 
 class MetricsWriter:
@@ -34,7 +39,9 @@ class MetricsWriter:
 def save_metrics(writer: MetricsWriter, per_class_dice, class_names, epoch: int,
                  run_dir: str):
     """Per-class mean Dice as scalars, and one line appended to val.txt.
-    per_class_dice: [n_patients, C]."""
+    per_class_dice: [n_patients, C]. Only on the primary rank."""
+    if not is_primary():
+        return
     per_class_dice = np.asarray(per_class_dice)
     means = per_class_dice.mean(0) if len(per_class_dice) else np.zeros(len(class_names))
     for name, v in zip(class_names, means):

@@ -24,12 +24,27 @@ MicFormer and MedNeXt training slices run:
   - `find_lr`, the LR range test;
   - bf16 as the JAX package's dtype=bf16, param_dtype=f32: the parameters
     stay f32 and `torch.autocast` runs the forward in bf16 (the losses
-    compute in f32).
-`zero1` and `mesh` (data parallelism) are not ported yet and raise.
+    compute in f32);
+  - data parallelism, `mesh` ("data=N", over a process group of N ranks,
+    `parallel/distributed.py`): the model runs under
+    DistributedDataParallel and each rank trains on its rows of the global
+    batch (the loader's rank rows). Augmentation and DropPath draw for the
+    global batch and keep the rank's rows, and the losses reduce over the
+    global batch (`losses.dice.global_batch`), so every rank reports the
+    loss of the global batch, which the NaN guard reads, and DDP's mean of
+    the gradients is its gradient, which clipping sees. `zero1` splits the
+    optimizer state over the ranks (ZeroRedundancyOptimizer; a no-op below
+    data = 2, as in JAX); its checkpoints hold the consolidated state in the
+    plain optimizer's format. Validation runs case-parallel (cases
+    round-robin by rank, metrics gathered in case order). Only the primary
+    rank writes checkpoints, log.jsonl and metrics; checkpoints hold the
+    unwrapped model's state_dict, so any run resumes at any world size,
+    with or without zero1.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -39,14 +54,17 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from micformer_tpu_torch.kernels import LAUNCHES
 from micformer_tpu_torch.losses.dice import (
     deep_supervision_loss, dice_bce_loss, dice_topk_loss, focal_loss, generalized_dice_loss,
-    hard_dice_metric, mcc_loss, mdice_loss, mdice_val_loss, one_hot, softmax_dice_ce_loss,
-    topk_ce_loss,
+    global_batch, hard_dice_metric, mcc_loss, mdice_loss, mdice_val_loss, one_hot,
+    softmax_dice_ce_loss, topk_ce_loss,
 )
 from micformer_tpu_torch.losses.metrics import meandice
+from micformer_tpu_torch.models.layers import batch_rows
+from micformer_tpu_torch.parallel.mesh import is_primary, make_mesh, zero1
 from micformer_tpu_torch.train.checkpoint import CheckpointManager
 from micformer_tpu_torch.train.logging import MetricsWriter, save_metrics
 from micformer_tpu_torch.train.meters import AverageMeter, ProgressMeter, Timer
@@ -56,8 +74,6 @@ from micformer_tpu_torch.train.schedules import cosine_annealing, poly_lr
 LOSSES = {"mdice": mdice_loss, "dice_ce": softmax_dice_ce_loss, "gdl": generalized_dice_loss,
           "topk": topk_ce_loss, "focal": focal_loss, "mcc": mcc_loss,
           "dice_topk": dice_topk_loss, "dice_bce": dice_bce_loss}
-UNPORTED_PARALLEL = ("data parallelism (--mesh, --zero1) is not ported yet: ROADMAP queue 1 "
-                     "item 3")
 
 
 def full_resolution(out):
@@ -100,13 +116,13 @@ class TrainConfig:
     # "run_dir" or "run_dir:tag" (default best_dice): seed the weights from
     # another port run's checkpoint, heads excluded; a live resume wins
     pretrained: str | None = None
-    # data parallelism, not ported yet: setting either raises
+    # ZeRO-1 optimizer-state sharding over the mesh's data axis; a no-op
+    # below data = 2
     zero1: bool = False
+    # "data=N": data parallelism over a process group of N ranks
     mesh: str | None = None
 
     def __post_init__(self):
-        if self.zero1 or self.mesh:
-            raise NotImplementedError(UNPORTED_PARALLEL)
         if self.loss not in LOSSES:
             raise ValueError(f"unknown loss {self.loss!r}; one of {sorted(LOSSES)}")
         if self.augment not in ("monai", "nnunet", "none"):
@@ -127,14 +143,16 @@ def unit_schedule(cfg: TrainConfig):
     return lambda step: 1.0
 
 
-def make_optimizer(params, cfg: TrainConfig):
-    """The optimizer of cfg at base learning rate cfg.lr."""
-    params = list(params)
+def make_optimizer(params, cfg: TrainConfig, sharded: bool = False):
+    """The optimizer of cfg at base learning rate cfg.lr; `sharded`: its
+    state split over the ranks (ZeRO-1)."""
     if cfg.optimizer == "sgd_nesterov":
-        return torch.optim.SGD(params, lr=cfg.lr, momentum=0.99, nesterov=True)
-    if cfg.optimizer == "adam" and cfg.weight_decay == 0:
-        return torch.optim.Adam(params, lr=cfg.lr)
-    return torch.optim.AdamW(params, lr=cfg.lr, weight_decay=cfg.weight_decay)
+        cls, kw = torch.optim.SGD, dict(lr=cfg.lr, momentum=0.99, nesterov=True)
+    elif cfg.optimizer == "adam" and cfg.weight_decay == 0:
+        cls, kw = torch.optim.Adam, dict(lr=cfg.lr)
+    else:
+        cls, kw = torch.optim.AdamW, dict(lr=cfg.lr, weight_decay=cfg.weight_decay)
+    return zero1(params, cls, **kw) if sharded else cls(list(params), **kw)
 
 
 def clip_by_global_norm(params, max_norm: float):
@@ -155,15 +173,27 @@ class Trainer:
 
     `history` keeps one record per train step: loss, skipped, seconds (host
     clock, which the loss read synchronises) and the kernel launches the
-    step made."""
+    step made. Under a mesh, `net` is the DDP-wrapped model that trains and
+    `model` the module it wraps."""
 
     def __init__(self, model, cfg: TrainConfig):
         self.model = model
         self.cfg = cfg
         self.device = next(model.parameters()).device
+        self.rank, self.world = 0, 1
+        self.net = model
+        if cfg.mesh:
+            mesh = make_mesh(cfg.mesh)
+            if mesh.space != 1:
+                raise ValueError(f"mesh {cfg.mesh!r}: the trainer shards the batch over "
+                                 "'data' only; give data=N")
+            self.rank, self.world = mesh.data_index, mesh.data
+            if dist.is_initialized():
+                self.net = self._wrap(model)
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.schedule = unit_schedule(cfg)
-        self.optimizer = make_optimizer(self.params, cfg)
+        self.zero1 = bool(cfg.zero1) and self.world > 1
+        self.optimizer = make_optimizer(self.params, cfg, sharded=self.zero1)
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(self.optimizer, self.schedule)
         self.step = 0
         self.nan_streak = 0
@@ -175,9 +205,36 @@ class Trainer:
         self.writer = MetricsWriter(cfg.run_dir)
         self.history: list[dict] = []
 
+    def _wrap(self, model):
+        """model under DistributedDataParallel on this rank's device; a model
+        that returns a pyramid trained on its full-resolution output alone
+        leaves its other heads without gradients, which DDP must be told."""
+        from torch.nn.parallel import DistributedDataParallel
+
+        unused = bool(getattr(model, "deep_supervision", False)) and not self.cfg.deep_supervision
+        ids = [self.device.index] if self.device.type == "cuda" else None
+        return DistributedDataParallel(model, device_ids=ids, find_unused_parameters=unused)
+
     def _log(self, record: dict):
+        if not is_primary():
+            return
         with open(self._log_path, "a") as f:
             f.write(json.dumps(record) + "\n")
+
+    def _rows(self, batch: int):
+        """(first row, global batch) of this rank's `batch` rows; None in a
+        single process."""
+        return (self.rank * batch, batch * self.world) if self.world > 1 else None
+
+    def _global(self, batch: int):
+        """The context of a rank's forward and loss on `batch` rows: DropPath
+        draws for the global batch and the losses reduce over it."""
+        stack = contextlib.ExitStack()
+        rows = self._rows(batch)
+        if rows is not None:
+            stack.enter_context(batch_rows(*rows))
+            stack.enter_context(global_batch())
+        return stack
 
     def _autocast(self):
         return torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.cfg.bf16)
@@ -193,15 +250,17 @@ class Trainer:
 
     def _augment(self, images, labels, generator=None):
         generator = self.generator if generator is None else generator
+        rows = self._rows(images.shape[0])
         if self.cfg.augment == "monai":
             from micformer_tpu_torch.data.transforms import batched_train_augment
 
-            return batched_train_augment(generator, images, labels, self.cfg.num_modalities)
+            return batched_train_augment(generator, images, labels, self.cfg.num_modalities,
+                                         rows=rows)
         if self.cfg.augment == "nnunet":
             from micformer_tpu_torch.data.transforms import batched_nnunet_train_augment
 
             return batched_nnunet_train_augment(generator, images, labels,
-                                                self.cfg.num_modalities)
+                                                self.cfg.num_modalities, rows=rows)
         return images, labels
 
     def loss(self, out, labels):
@@ -221,17 +280,18 @@ class Trainer:
         return images
 
     def train_step(self, images, labels) -> dict:
-        """One step on a loader batch. The gradients stay in the parameters'
-        .grad until the next step."""
+        """One step on a loader batch (this rank's rows of the global batch
+        under a mesh). The gradients stay in the parameters' .grad until the
+        next step."""
         cfg = self.cfg
         before = dict(LAUNCHES)
         t0 = time.perf_counter()
-        self.model.train()
+        self.net.train()
         images, labels = self.prep_batch(images, labels)
         images, labels = self._augment(images, labels)
         self.optimizer.zero_grad(set_to_none=True)
-        with self._autocast():
-            loss = self.loss(self.model(images, generator=self.generator), labels)
+        with self._autocast(), self._global(images.shape[0]):
+            loss = self.loss(self.net(images, generator=self.generator), labels)
         loss.backward()
         value = loss.item()
         skipped = cfg.nan_guard and not math.isfinite(value)
@@ -252,8 +312,24 @@ class Trainer:
     def lr_now(self) -> float:
         return self.cfg.lr * float(self.schedule(self.step))
 
+    def optimizer_state(self):
+        """The optimizer's state_dict in the plain optimizer's format. Under
+        ZeRO-1 every rank must call it: the state is consolidated on rank 0,
+        which gets it (the others get None)."""
+        if not self.zero1:
+            return self.optimizer.state_dict()
+        self.optimizer.consolidate_state_dict(to=0)
+        if not is_primary():
+            return None
+        sd = self.optimizer.state_dict()
+        # the local optimizer's group holds every hyperparameter of the plain
+        # one; the wrapper's, the schedule's lr and initial_lr
+        inner = {k: v for k, v in self.optimizer.optim.param_groups[0].items() if k != "params"}
+        return {"state": sd["state"],
+                "param_groups": [{**inner, **g} for g in sd["param_groups"]]}
+
     def _payload(self, epoch, best_dice, best_loss):
-        return {"params": self.model.state_dict(), "opt_state": self.optimizer.state_dict(),
+        return {"params": self.model.state_dict(), "opt_state": self.optimizer_state(),
                 "scheduler": self.scheduler.state_dict(), "step": self.step,
                 "epoch": epoch, "best_dice": best_dice, "best_loss": best_loss}
 
@@ -290,10 +366,12 @@ class Trainer:
         weights and state stay as they are; no NaN guard, no clipping, no
         schedule. Records the bias-corrected smoothed losses (beta 0.98),
         writes {"find_lr": {"lrs", "losses"}} to log.jsonl and returns
-        (lrs, losses)."""
+        (lrs, losses). Under a mesh each iteration is the trainer's global
+        step."""
         mult = (final_lr / init_lr) ** (1 / max(num_iters - 1, 1))
         model = copy.deepcopy(self.model).train()
         params = [p for p in model.parameters() if p.requires_grad]
+        net = self._wrap(model) if self.net is not self.model else model
         opt = torch.optim.SGD(params, lr=init_lr, momentum=0.9)
         generator = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
         lrs, losses, avg, it = [], [], 0.0, 0
@@ -307,8 +385,8 @@ class Trainer:
                 images, labels = self.prep_batch(images, labels)
                 images, labels = self._augment(images, labels, generator)
                 opt.zero_grad(set_to_none=True)
-                with self._autocast():
-                    loss = self.loss(model(images, generator=generator), labels)
+                with self._autocast(), self._global(images.shape[0]):
+                    loss = self.loss(net(images, generator=generator), labels)
                 loss.backward()
                 opt.step()
                 value = loss.item()
@@ -407,12 +485,20 @@ class Trainer:
 
     @torch.no_grad()
     def validate(self, val_loader) -> dict:
+        """mdice_val_loss, meandice and per-class hard Dice over the
+        validation batches, through the unwrapped model. Under a mesh the
+        batches go round-robin by rank (as `shard_cases` deals them: rank r
+        evaluates batches r, r + W, ...), each rank runs the serial loop's program on
+        its own, and the metrics are gathered in batch order, so they equal
+        the serial loop's; no rank runs a padding batch."""
         from micformer_tpu_torch.infer.sliding_window import sliding_window_inference
 
         cfg = self.cfg
         self.model.eval()
-        losses, dices, per_class = [], [], []
-        for images, labels, _ in val_loader:
+        mine = {}
+        for i, (images, labels, _) in enumerate(val_loader):
+            if i % self.world != self.rank:        # shard_cases(batches, rank, world)
+                continue
             images, labels = self.prep_batch(images, labels)
             images = self._val_transform(images)
             with self._autocast():
@@ -424,10 +510,16 @@ class Trainer:
                 else:
                     logits = full_resolution(self.model(images))
             m = self.eval_metrics(logits, labels)
-            losses.append(m["val_loss"])
-            dices.append(m["meandice"])
-            per_class.append(m["per_class_dice"])
-        pc = (np.concatenate(per_class, axis=0) if per_class
+            mine[i] = (m["val_loss"], m["meandice"], m["per_class_dice"])
+        per_batch = mine
+        if self.world > 1 and dist.is_initialized():
+            parts = [None] * self.world
+            dist.all_gather_object(parts, mine)
+            per_batch = {i: v for part in parts for i, v in part.items()}
+        order = sorted(per_batch)
+        losses = [per_batch[i][0] for i in order]
+        dices = [per_batch[i][1] for i in order]
+        pc = (np.concatenate([per_batch[i][2] for i in order], axis=0) if order
               else np.zeros((0, cfg.num_classes)))
         return {"val_loss": float(np.mean(losses)) if losses else float("nan"),
                 "meandice": float(np.mean(dices)) if dices else float("nan"),

@@ -257,15 +257,67 @@ def test_predict_workers_give_the_same_files(data_root, runs, tmp_path):
             np.testing.assert_array_equal(v, ref[k])
 
 
-@pytest.mark.parametrize("args, queue", [
+def _generic_unet_run(run):
+    """A port run dir of a tiny GenericUNet (base 4, two (2, 2, 2) pools)."""
+    kw = dict(base_num_features=4, pool_kernels=[[2, 2, 2]] * 2, conv_kernels=[[3, 3, 3]] * 3,
+              in_channels=2)
+    cfg = tcfg.Config()
+    cfg.model.name = "generic_unet"
+    cfg.model.extra = kw
+    tcfg.save_config(cfg, os.path.join(run, "config.json"))
+    model = treg.build("generic_unet", device="cpu", num_classes=8,
+                       generator=torch.Generator().manual_seed(5), **kw)
+    CheckpointManager(run).save("best_dice", {"params": model.state_dict(), "step": 1})
+
+
+def _same_predictions(a, b):
+    """Two output dirs of the same cases: softmax files within 1e-3 (f16
+    storage), label maps equal wherever the top-2 margin exceeds 2e-3."""
+    pids = sorted(f[: -len("_pred.nii.gz")] for f in os.listdir(a) if f.endswith("_pred.nii.gz"))
+    assert len(pids) == 2 and sorted(os.listdir(a)) == sorted(os.listdir(b))
+    for pid in pids:
+        sa = np.load(os.path.join(a, f"{pid}_softmax.npz"))["softmax"].astype(np.float32)
+        sb = np.load(os.path.join(b, f"{pid}_softmax.npz"))["softmax"].astype(np.float32)
+        np.testing.assert_allclose(sa, sb, atol=1e-3)
+        sure = _margin(sa) > 2e-3
+        assert sure.mean() > 0.25
+        np.testing.assert_array_equal(read_nifti(os.path.join(a, f"{pid}_pred.nii.gz"))[sure],
+                                      read_nifti(os.path.join(b, f"{pid}_pred.nii.gz"))[sure])
+
+
+@pytest.mark.parametrize("args, expect", [
     (["--engine", "2d"], "queue 4"), (["--engine", "p3d"], "queue 4"),
-    (["--engine", "spatial"], "queue 3"), (["--spatial-shards", "2"], "queue 3"),
-    (["--pseudo3d-slices", "5"], "queue 4"), (["--sharded-tiles"], "queue 3"),
-])
-def test_unported_options_raise(tmp_path, args, queue):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {queue}"):
-        tpredict.main(["--data", str(tmp_path), "--run-dirs", str(tmp_path),
-                       "--device", "cpu", *args])
+    (["--engine", "spatial"], "whole-volume forward"), (["--spatial-shards", "2"], "refused"),
+    (["--pseudo3d-slices", "5"], "queue 4"), (["--sharded-tiles"], "sw_batch 1"),
+], ids=["args0-queue 4", "args1-queue 4", "args2-queue 3", "args3-queue 3", "args4-queue 4",
+        "args5-queue 3"])
+def test_unported_options_raise(data_root, runs, tmp_path, args, expect):
+    """The 2D engines still raise, naming ROADMAP queue 4. At world size 1
+    --sharded-tiles is the 3d engine at sw_batch 1, and --engine spatial the
+    whole-volume forward of a GenericUNet run (the 3d engine with the roi
+    equal to the volume); --spatial-shards other than the world size is
+    refused."""
+    if expect == "queue 4":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {expect}"):
+            tpredict.main(["--data", str(tmp_path), "--run-dirs", str(tmp_path),
+                           "--device", "cpu", *args])
+        return
+    if expect == "refused":
+        with pytest.raises(SystemExit, match="runs on every rank, 1 here"):
+            tpredict.main(["--data", str(tmp_path), "--run-dirs", str(tmp_path),
+                           "--device", "cpu", "--engine", "spatial", *args])
+        return
+    run = runs[0][1]
+    if expect == "whole-volume forward":
+        run = str(tmp_path / "generic_unet")
+        _generic_unet_run(run)
+    base = ["--data", data_root, "--cache", os.path.join(data_root, "cache_port"),
+            "--run-dirs", run, "--device", "cpu", "--target-shape", "32", "--roi", "32",
+            "--save-softmax"] + (["--mirror-tta"] if expect == "sw_batch 1" else [])
+    got, want = str(tmp_path / "got"), str(tmp_path / "want")
+    tpredict.main(base + ["--out", got] + args)
+    tpredict.main(base + ["--out", want, "--sw-batch-size", "1"])
+    _same_predictions(got, want)
 
 
 def test_predict_without_a_card_raises(data_root, runs, tmp_path, monkeypatch):

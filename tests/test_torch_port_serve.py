@@ -73,7 +73,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     for name in ("cli.serve", "models.mednext", "kernels.dw_conv3", "cli.train",
                  "train.trainer", "data.transforms", "kernels.fused_window_attention",
                  "losses.dice", "cli.predict", "cli.evaluate", "cli.ensemble",
-                 "pipeline.evaluator", "pipeline.postprocess", "losses.metrics"):
+                 "pipeline.evaluator", "pipeline.postprocess", "losses.metrics",
+                 "parallel.distributed", "parallel.mesh", "parallel.spatial", "infer.sharded",
+                 "models.generic_unet"):
         assert f"micformer_tpu_torch.{name}" in lines[0], name
     assert lines[-1] == "BAD []", lines[-1]
 

@@ -171,20 +171,21 @@ def test_nan_guard_halts_after_max_consecutive(tmp_path):
 
 
 @pytest.mark.parametrize("kw, error", [
-    ({"zero1": True}, NotImplementedError), ({"mesh": "data=4"}, NotImplementedError),
+    ({"zero1": True}, None), ({"mesh": "data=4"}, None),
     ({"pretrained": "runs/x"}, None), ({"loss": "gdl"}, None), ({"loss": "topk"}, None),
     ({"loss": "focal"}, None), ({"loss": "mcc"}, None), ({"loss": "dice_topk"}, None),
     ({"loss": "dice_bce"}, None), ({"loss": "edice"}, ValueError)],
     ids=["zero1", "mesh", "pretrained", "gdl", "topk", "focal", "mcc", "dice_topk", "dice_bce",
          "unknown_loss"])
 def test_unported_config_fields_raise(kw, error):
-    """Data parallelism (zero1, mesh) is still unported and raises naming its
-    ROADMAP item; `pretrained` and the loss zoo are ported and construct; a
-    loss the JAX trainer does not dispatch raises ValueError, as it does."""
+    """Every field of the JAX trainer's config constructs: data parallelism
+    (zero1, mesh; the mesh is checked against the world size when a Trainer
+    is built), `pretrained` and the loss zoo; a loss the JAX trainer does not
+    dispatch raises ValueError, as it does."""
     if error is None:
         assert getattr(TrainConfig(**kw), next(iter(kw))) == next(iter(kw.values()))
         return
-    with pytest.raises(error, match="item 3" if error is NotImplementedError else "edice"):
+    with pytest.raises(error, match="edice"):
         TrainConfig(**kw)
 
 
@@ -245,15 +246,38 @@ def test_cli_train_on_cpu_writes_logs_checkpoints_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("extra, error", [
-    ([], RuntimeError), (["--zero1"], NotImplementedError),
-    (["--mesh", "data=4"], NotImplementedError)], ids=["no_card", "zero1", "mesh"])
+    ([], RuntimeError), (["--zero1"], None), (["--mesh", "data=4"], SystemExit)],
+    ids=["no_card", "zero1", "mesh"])
 def test_cli_train_raises_without_a_card_and_for_unported_flags(tmp_path, extra, error):
-    """Without --device cpu the CLI asks for the card and raises without one;
-    --zero1 and --mesh parse but raise naming ROADMAP queue 1 item 3 (data
-    parallelism), before any data or device is touched."""
+    """Without --device cpu the CLI asks for the card and raises without one.
+    As in the JAX CLI, --mesh data=4 refuses a batch it does not divide
+    (before any data or device is touched) and a world size it does not
+    match, and --zero1 without a mesh is a no-op: the run trains with the
+    plain optimizer and records the flag."""
     from micformer_tpu_torch.cli import train
 
-    if error is RuntimeError and torch.cuda.is_available():
-        pytest.skip("this machine has a card")
-    with pytest.raises(error, match="CUDA" if error is RuntimeError else "item 3"):
-        train.main(["--data", str(tmp_path)] + extra)
+    if error is RuntimeError:
+        if torch.cuda.is_available():
+            pytest.skip("this machine has a card")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            train.main(["--data", str(tmp_path)] + extra)
+        return
+    if error is SystemExit:
+        with pytest.raises(SystemExit, match="--batch-size 1 not divisible by mesh data=4"):
+            train.main(["--data", str(tmp_path)] + extra)
+        with pytest.raises(SystemExit, match="world size 1"):
+            train.main(["--data", str(tmp_path), "--device", "cpu", "--batch-size", "4"]
+                       + extra)
+        return
+    data = tmp_path / "data"
+    write_synthetic_dataset(str(data), n_cases=6, shape=(20, 18, 22), seed=0)
+    run = tmp_path / "run"
+    trainer = train.main(["--data", str(data), "--cache", str(tmp_path / "cache"),
+                          "--device", "cpu", "--model-kwargs",
+                          json.dumps({k: v for k, v in TINY_PORT.items() if k != "num_classes"}),
+                          "--target-shape", "16", "--val", "1", "--run-dir", str(run),
+                          "--epochs", "1"] + extra)
+    assert not trainer.zero1 and type(trainer.optimizer) is torch.optim.Adam
+    assert trainer.net is trainer.model and trainer.step == 4
+    saved = json.loads((run / "config.json").read_text())["train"]
+    assert saved["zero1"] is True and saved["mesh"] is None
