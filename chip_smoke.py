@@ -39,7 +39,10 @@ Phases; any error in any of them fails the run (non-zero exit, no result line):
                weight-gradient kernel) against the plain version, with
                cuDNN's conv3d_input / conv3d_weight and F.conv3d forward and
                backward as the library times; then each of the three summed
-               over one MedNeXt-S pass (18 launches at the stage shapes).
+               over one MedNeXt-S pass (18 launches at the stage shapes); the
+               same K3, dx and wgrad rows at SwinUnet3D's gated-conv shapes
+               (96-768 channels: [4, C, 32³-4³] serving, b2 training), summed
+               over its 14 launches a pass.
   4. slice   - per model, full width with seeded random weights, f32 with TF32
                off, on one 1x2x64³ input: the card (kernels) against the CPU
                (plain versions). MicFormer: embed 48, depths 2-2-6-2, heads
@@ -118,7 +121,27 @@ Phases; any error in any of them fails the run (non-zero exit, no result line):
                --spatial-shards 2 from it, its logits within 2e-4 of one
                process's forward of the checkpoint. Each run's warm ms a step,
                first step, peak memory and wall a rank.
- 10. lines   - a {"kernels": [...]} line, then the {"ok": true, ...} line last.
+ 10. zoo     - UNet3D, nnFormer and SwinUnet3D (and its pure sibling) at their
+               published widths with seeded weights: (a) card against CPU at
+               1x2x64³, f32 without TF32, max |card - CPU| within ZOO_REL_BAR of
+               max |logit| (nnFormer's whole deep-supervision pyramid), with
+               the launches and attention paths of the card's forward (K3 14 a
+               SwinUnet3D forward; K1 only where its window clamps to 2³);
+               (c) nnFormer and SwinUnet3D in bf16 through the serve loop as
+               phase 5 (one cold request, three [2, 160³] at roi 128), their
+               launches, routes and attention paths (the plain chain only);
+               (d) cli/train on phase 6's root in bf16: nnFormer from
+               configs/nnformer_mmwhs.yaml for two epochs with validation,
+               SwinUnet3D (28 K3 and 14 wgrad launches a step, tma and volume
+               routes) and UNet3D for one epoch each at batch 2, each checked
+               as phase 6; (e) on phase 7's root at 160³, f32 without TF32:
+               cli/predict from (d)'s nnFormer run (3d engine, mirror TTA; its
+               softmax within 2e-3 of a direct sliding_window_inference on the
+               checkpoint), --engine 2d and --engine p3d --pseudo3d-slices 5
+               from run dirs of a seeded full-width 2D GenericUNet, and the 2d
+               engine with one tile a slice within 1e-4 of a dense per-slice
+               forward; seconds a case and peak memory of each.
+ 11. lines   - a {"kernels": [...]} line, then the {"ok": true, ...} line last.
 """
 
 from __future__ import annotations
@@ -195,6 +218,12 @@ DW_SHAPES = [((4, 32, 128, 128, 128), 3), ((4, 64, 64, 64, 64), 3),
              ((4, 128, 32, 32, 32), 3), ((4, 256, 16, 16, 16), 3),
              ((4, 512, 8, 8, 8), 3), ((2, 24, 37, 45, 51), 3),
              ((1, 16, 19, 23, 70), 5)]
+# SwinUnet3D's gated depthwise convs (groups = channels, 96-768 of them) at
+# sw_batch 4, roi 128: its four stage shapes, each run by 4, 4, 4 and 2 of
+# the 14 convs of a forward (encoder and decoder stages, two convs each)
+SWIN_DW_SHAPES = [((4, 96, 32, 32, 32), 3), ((4, 192, 16, 16, 16), 3),
+                  ((4, 384, 8, 8, 8), 3), ((4, 768, 4, 4, 4), 3)]
+SWIN_DW_STAGE_LAUNCHES = [4, 4, 4, 2]
 # f32: 27-125 f32 terms summed in another order; bf16: one rounding of
 # outputs up to about 10
 DW_TOL = {torch.float32: dict(rtol=0.0, atol=1e-4),
@@ -204,6 +233,8 @@ DW_TOL = {torch.float32: dict(rtol=0.0, atol=1e-4),
 DW_TRAIN_SHAPES = [((2, 32, 128, 128, 128), 3), ((2, 64, 64, 64, 64), 3),
                    ((2, 128, 32, 32, 32), 3), ((2, 256, 16, 16, 16), 3),
                    ((2, 512, 8, 8, 8), 3)] + DW_SHAPES[5:]
+# ... and in a b2 128³ SwinUnet3D training step
+SWIN_DW_TRAIN_SHAPES = [((2,) + shape[1:], k) for shape, k in SWIN_DW_SHAPES]
 # stride-1 depthwise convs of one MedNeXt-S pass at stages 0-3 (2 encoder
 # and 2 decoder blocks each) and the bottleneck (2 blocks): 18 in all
 DW_STAGE_LAUNCHES = [4, 4, 4, 4, 2]
@@ -240,7 +271,12 @@ PATHS = {
 # 18 K3 launches for dx and 18 wgrad launches)
 TRAIN_STEP = {False: expect(window_attention=96, window_attention_backward=96),
               True: expect(fused_window_attention=96, fused_window_attention_backward=96),
-              "mednext": expect(dw_conv3=36, dw_conv3_wgrad=18), "generic_unet": expect()}
+              "mednext": expect(dw_conv3=36, dw_conv3_wgrad=18), "generic_unet": expect(),
+              # the zoo: SwinUnet3D's 14 gated convs a forward, K3 again for
+              # their dx and the wgrad kernel for dw and db
+              "nnformer": expect(), "unet3d": expect(),
+              "swinunet3d": expect(dw_conv3=28, dw_conv3_wgrad=14)}
+ZOO_TRAIN = ("nnformer", "unet3d", "swinunet3d")
 
 
 # the training phases' volumes: 2×128³, each model's published patch
@@ -682,7 +718,7 @@ def phase_dw_kernel():
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     for ((B, C, D, H, W), k), dt in itertools.product(
-            DW_SHAPES, (torch.float32, torch.bfloat16)):
+            DW_SHAPES + SWIN_DW_SHAPES, (torch.float32, torch.bfloat16)):
         x = torch.randn((B, C, D, H, W), generator=gen, device="cuda").to(dt)
         w = (torch.randn((C, 1, k, k, k), generator=gen, device="cuda")
              / k ** 1.5).to(dt)
@@ -715,18 +751,18 @@ def phase_dw_kernel():
     return rows
 
 
-def dw_pass_sums(name, rows, shapes):
-    """Kernel, library and bound time of one MedNeXt-S pass of a K3-family
-    kernel: each stage shape's row times its launches (DW_STAGE_LAUNCHES)."""
+def dw_pass_sums(name, rows, shapes, launches=DW_STAGE_LAUNCHES):
+    """Kernel, library and bound time of one pass of a K3-family kernel:
+    each stage shape's row times its launches (MedNeXt-S's by default)."""
     sums = {}
     for dt in ("float32", "bfloat16"):
         sel = [next(r for r in rows if r["shape"] == list(shape) and r["dtype"] == dt)
-               for shape, _ in shapes[:len(DW_STAGE_LAUNCHES)]]
-        sums[dt] = {key: sum(n * r[key] for n, r in zip(DW_STAGE_LAUNCHES, sel))
+               for shape, _ in shapes[:len(launches)]]
+        sums[dt] = {key: sum(n * r[key] for n, r in zip(launches, sel))
                     for key in ("ms", "library_ms", "bound_ms")}
         log(f"pass sum {name} {dt}: kernel {1e3 * sums[dt]['ms']:.1f} us, library "
             f"{1e3 * sums[dt]['library_ms']:.1f} us, bound {1e3 * sums[dt]['bound_ms']:.1f} us "
-            f"({sum(DW_STAGE_LAUNCHES)} launches)")
+            f"({sum(launches)} launches)")
     return sums
 
 
@@ -749,7 +785,7 @@ def phase_dw_backward_kernel():
     gen = torch.Generator(device="cuda").manual_seed(4)
     dx_rows, wgrad_rows = [], []
     for ((B, C, D, H, W), k), dt in itertools.product(
-            DW_TRAIN_SHAPES, (torch.float32, torch.bfloat16)):
+            DW_TRAIN_SHAPES + SWIN_DW_TRAIN_SHAPES, (torch.float32, torch.bfloat16)):
         x, g = (torch.randn((B, C, D, H, W), generator=gen, device="cuda").to(dt)
                 for _ in range(2))
         w = (torch.randn((C, 1, k, k, k), generator=gen, device="cuda") / k ** 1.5).to(dt)
@@ -998,7 +1034,7 @@ def train_run(name, argv, key, batch, want_steps):
     TRAIN_STEP[key], routes only tma and volume (K3 family) and mma (K1 or
     K2). Returns (the run's numbers, the trainer)."""
     from micformer_tpu_torch.cli import train
-    from micformer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from micformer_tpu_torch.kernels import ATTENTION_PATHS, LAUNCHES, reset_launches
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1006,9 +1042,9 @@ def train_run(name, argv, key, batch, want_steps):
     t0 = time.perf_counter()
     trainer = train.main(argv)
     wall = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
+    launches, paths = dict(LAUNCHES), dict(ATTENTION_PATHS)
     routes = all_routes()
-    dw_routes = PATH_ROUTES if key == "mednext" else []
+    dw_routes = PATH_ROUTES if key in ("mednext", "swinunet3d") else []
     k1_routes = ATTN_PATH_ROUTES if key is False else []
     k2_routes = ATTN_PATH_ROUTES if key is True else []
     want_routes = {"dw_conv3": dw_routes, "dw_conv3_wgrad": dw_routes,
@@ -1025,16 +1061,20 @@ def train_run(name, argv, key, batch, want_steps):
            "warm_ms_per_step": 1e3 * statistics.mean(warm) if warm else None,
            "warm_vol_per_s": batch * len(warm) / sum(warm) if warm else None,
            "max_memory_allocated": peak, "launches": launches, "wall_s": wall,
-           "launches_per_step": hist[0]["launches"] if hist else None, "routes": routes}
+           "launches_per_step": hist[0]["launches"] if hist else None, "routes": routes,
+           "attention_paths": paths}
     log(f"train {name}: {len(hist)} steps of batch {batch} (to step {trainer.step}) in "
         f"{wall:.2f} s, first step {res['first_step_s']:.3f} s, warm "
         f"{res['warm_ms_per_step']:.2f} ms/step, {res['warm_vol_per_s']:.3f} vol/s, peak "
         f"{peak / 2 ** 30:.2f} GiB, step ms {res['step_ms']}, losses {losses}, launches "
         f"{launches}, per step "
-        f"{res['launches_per_step']}, routes {routes}")
+        f"{res['launches_per_step']}, routes {routes}, attention paths {paths}")
     want = TRAIN_STEP[key]
     if routes != want_routes:
         raise AssertionError(f"train {name}: routes {routes} (want {want_routes})")
+    if key in ZOO_TRAIN and (paths["k1"] or paths["k2"]):
+        raise AssertionError(f"train {name}: attention paths {paths}: the zoo's windows "
+                             f"at {TRAIN_SIZE}³ hold more than 16 tokens (the plain chain)")
     if ((len(hist), trainer.step) != want_steps
             or not all(np.isfinite(v) and not r["skipped"] for v, r in zip(losses, hist))
             or any(r["launches"] != want for r in hist)
@@ -1045,10 +1085,14 @@ def train_run(name, argv, key, batch, want_steps):
     return res, trainer
 
 
-def phase_serve(name, model_cpu, work):
+def phase_serve(name, model_cpu, work, want=None, want_routes=None):
+    """One cold request, then three [2, 160³] requests in bf16 through the
+    serve loop; each request's launches must be `want` (PATHS[name]'s
+    request by default) and the three's routes `want_routes` (by default:
+    MedNeXt's K3 on tma and volume, MicFormer's K1 on mma)."""
     from micformer_tpu_torch.cli import serve
     from micformer_tpu_torch.data.nifti import read_nifti
-    from micformer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from micformer_tpu_torch.kernels import ATTENTION_PATHS, LAUNCHES, reset_launches
 
     weights = os.path.join(work, f"{name}_bf16.pt")
     torch.save({k: v.bfloat16() for k, v in model_cpu.state_dict().items()}, weights)
@@ -1080,12 +1124,14 @@ def phase_serve(name, model_cpu, work):
     t0 = time.perf_counter()
     lat, out = serve_dir("in", names)
     wall = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
+    launches, paths = dict(LAUNCHES), dict(ATTENTION_PATHS)
     routes = all_routes()
-    want_routes = {"dw_conv3": PATH_ROUTES if name == "mednext" else [], "dw_conv3_wgrad": [],
-                   "window_attention": ATTN_PATH_ROUTES if name == "micformer" else [],
-                   "window_attention_backward": [], "fused_window_attention": [],
-                   "fused_window_attention_backward": []}
+    if want_routes is None:
+        want_routes = {"dw_conv3": PATH_ROUTES if name == "mednext" else [],
+                       "dw_conv3_wgrad": [],
+                       "window_attention": ATTN_PATH_ROUTES if name == "micformer" else [],
+                       "window_attention_backward": [], "fused_window_attention": [],
+                       "fused_window_attention_backward": []}
     peak = torch.cuda.max_memory_allocated()
 
     per_request = []
@@ -1095,16 +1141,17 @@ def phase_serve(name, model_cpu, work):
             raise AssertionError(f"serve {name}: bad segmentation for {vol}: {seg.shape}")
         with open(os.path.join(out, f"{vol}.done")) as f:
             per_request.append(json.load(f)["launches"])
-    want = PATHS[name]["request"]
+    want = PATHS[name]["request"] if want is None else want
     res = {"model": name, "requests": len(lat), "cold_latency_s": cold,
            "latency_s": lat, "p50_s": statistics.median(lat),
            "vol_per_s": len(lat) / sum(lat), "wall_s": wall,
            "max_memory_allocated": peak, "launches": launches,
-           "launches_per_request": per_request, "routes": routes}
+           "launches_per_request": per_request, "routes": routes, "attention_paths": paths}
     log(f"serve: {name} {len(lat)} warm volumes 2x160³ bf16 roi 128 sw_batch 4: p50 "
         f"{res['p50_s']:.4f} s, {res['vol_per_s']:.3f} vol/s, latencies {lat}, "
         f"cold first request {cold:.4f} s, peak {peak / 2 ** 30:.2f} GiB, "
-        f"launches {launches}, per request {per_request}, routes {routes}")
+        f"launches {launches}, per request {per_request}, routes {routes}, attention "
+        f"paths {paths}")
     if (len(lat) != 3 or per_request != [want] * 3
             or launches != {k: 3 * n for k, n in want.items()} or routes != want_routes):
         raise AssertionError(f"serve {name}: {len(lat)} requests, launches {launches}, "
@@ -1997,6 +2044,221 @@ def phase_parallel(work, direct):
     return res
 
 
+# phase 10: the zoo. Its models at their published widths (MM-WHS configs:
+# UNet3D 4-8-16-32-64; nnFormer embed 96, heads 3-6-12-24, windows 4-4-8-4;
+# SwinUnet3D hidden 96, heads 3-6-9-12, head_dim 32, window 4)
+ZOO_MODELS = ("unet3d", "nnformer", "swinunet3d", "swinunet3d_pure")
+# (a) card against CPU at 1x2x64³, f32 without TF32: max |card - CPU| within
+# this share of max |logit| (f32 sums in another order through 20-50 layers)
+ZOO_REL_BAR = 1e-4
+# launches and attention paths of one forward at 1x2x64³: SwinUnet3D's 14
+# gated convs run K3; its window 4 clamps to the 2³ grid of the features
+# stage, two unbiased blocks of 8 tokens, which is K1's regime (route ffma in
+# f32); every other attention (nnFormer's 14, all biased; SwinUnet3D's 16 of
+# 64 tokens) takes the plain chain
+ZOO_SLICE = {"unet3d": (expect(), {"k1": 0, "k2": 0, "matmul": 0}),
+             "nnformer": (expect(), {"k1": 0, "k2": 0, "matmul": 14}),
+             "swinunet3d": (expect(dw_conv3=14, window_attention=2),
+                            {"k1": 2, "k2": 0, "matmul": 16}),
+             "swinunet3d_pure": (expect(window_attention=2), {"k1": 2, "k2": 0, "matmul": 16})}
+# (c) one request: two forwards at sw_batch 4, roi 128 (no window clamps to
+# 16 tokens or fewer); bf16 rows of 8 bytes at 4³ take K3's cp_async route
+ZOO_REQUEST = {"nnformer": (expect(), {"k1": 0, "k2": 0, "matmul": 28}, {}),
+               "swinunet3d": (expect(dw_conv3=28), {"k1": 0, "k2": 0, "matmul": 36},
+                              {"dw_conv3": ["cp_async", "tma", "volume"]})}
+# (e) a seeded full-width 2D GenericUNet (base 32, five (2, 2) pools, k3,
+# 512 features at most): 2 input channels for --engine 2d, 2 x 5 for p3d
+UNET2D = {"base_num_features": 32, "pool_kernels": [[2, 2]] * 5,
+          "conv_kernels": [[3, 3]] * 6, "max_features": 512}
+
+
+def _zoo_slice(name, model_cpu):
+    """(a): the model on the card against its CPU run at 1x2x64³ (f32, TF32
+    off); the launches and attention paths of the card's forward."""
+    from micformer_tpu_torch.kernels import ATTENTION_PATHS, LAUNCHES, reset_launches
+
+    _set_tf32(False)
+    try:
+        model_gpu = copy.deepcopy(model_cpu).to("cuda")
+        x = torch.from_numpy(np.random.default_rng(0).normal(
+            size=(1, 2, 64, 64, 64)).astype(np.float32))
+        with torch.no_grad():
+            reset_launches()
+            reset_all_routes()
+            out_gpu = model_gpu(x.cuda())
+            torch.cuda.synchronize()
+            launches, paths, routes = dict(LAUNCHES), dict(ATTENTION_PATHS), all_routes()
+            out_cpu = model_cpu(x)
+    finally:
+        _set_tf32(True)
+    outs = list(zip(out_gpu, out_cpu)) if isinstance(out_cpu, list) else [(out_gpu, out_cpu)]
+    errs = []
+    for g, c in outs:
+        g = g.cpu()
+        if g.shape[:2] != (1, 8) or not torch.isfinite(g).all():
+            raise AssertionError(f"zoo slice {name}: bad output {tuple(g.shape)}")
+        errs.append(((g - c).abs().max().item(), c.abs().max().item()))
+    want_launches, want_paths = ZOO_SLICE[name]
+    log(f"zoo (a) {name} 1x2x64³ f32, card vs CPU max |d| / max |logit| "
+        f"{', '.join(f'{e:.3g} / {m:.3g}' for e, m in errs)} (bar {ZOO_REL_BAR} of max "
+        f"|logit|), launches {launches}, routes {routes}, attention paths {paths}")
+    if (any(not (e <= ZOO_REL_BAR * m) or m == 0.0 for e, m in errs)
+            or launches != want_launches or paths != want_paths):
+        raise AssertionError(f"zoo slice {name}: errors {errs}, launches {launches} (want "
+                             f"{want_launches}), attention paths {paths} (want {want_paths})")
+    del model_gpu
+    torch.cuda.empty_cache()
+    return {"errors": errs, "launches": launches, "attention_paths": paths, "routes": routes}
+
+
+def _unet2d_run(run, in_channels, seed):
+    """A run dir of a seeded full-width 2D GenericUNet (config.json and
+    ckpt_best_dice.pt written through the port's modules)."""
+    from micformer_tpu_torch import config as tcfg
+    from micformer_tpu_torch import registry
+    from micformer_tpu_torch.train.checkpoint import CheckpointManager
+
+    os.makedirs(run)
+    cfg = tcfg.Config()
+    cfg.model.name = "generic_unet"
+    cfg.model.extra = dict(UNET2D, in_channels=in_channels)
+    tcfg.save_config(cfg, os.path.join(run, "config.json"))
+    model = registry.build("generic_unet", device="cpu", in_channels=in_channels,
+                           generator=torch.Generator().manual_seed(seed), **UNET2D)
+    CheckpointManager(run).save("best_dice", {"params": model.state_dict(), "step": 1})
+    return run
+
+
+def phase_zoo(work):
+    """Phase 10: the zoo, see the module docstring."""
+    from micformer_tpu_torch import registry
+    from micformer_tpu_torch.cli import predict
+    from micformer_tpu_torch.data.mmwhs import get_datasets
+    from micformer_tpu_torch.data.nifti import read_nifti
+    from micformer_tpu_torch.infer import (
+        sliding_window_inference, sliding_window_inference_2d,
+    )
+    from micformer_tpu_torch.kernels import ATTENTION_PATHS, LAUNCHES, reset_launches
+
+    t_phase = time.perf_counter()
+    res = {"slice": {}, "serve": {}, "train": {}, "predict": {}}
+    # (a) and (c): each model built once on the CPU, seeded, at full width
+    for name in ZOO_MODELS:
+        # nnFormer's bias tables follow the windows clamped to the input it is
+        # built for: (a)'s 64³ clamps the 8³ and 4³ windows of its two deepest stages
+        kwargs = {"deep_supervision": True, "input_size": 64} if name == "nnformer" else {}
+        model_cpu = registry.build(name, device="cpu",
+                                   generator=torch.Generator().manual_seed(0), **kwargs)
+        log(f"zoo model: {name} {sum(p.numel() for p in model_cpu.parameters())} parameters")
+        res["slice"][name] = _zoo_slice(name, model_cpu)
+        if name in ZOO_REQUEST:
+            if name == "nnformer":
+                # the served model (roi 128: no window clamps), its full-resolution head alone
+                model_cpu = registry.build(name, device="cpu",
+                                           generator=torch.Generator().manual_seed(0))
+            want, want_paths, routes = ZOO_REQUEST[name]
+            served = phase_serve(name, model_cpu, work, want=want, want_routes={
+                k: routes.get(k, []) for k in KERNELS})
+            if served["attention_paths"] != {k: 3 * n for k, n in want_paths.items()}:
+                raise AssertionError(f"serve {name}: attention paths "
+                                     f"{served['attention_paths']} (want 3 x {want_paths})")
+            res["serve"][name] = served
+        del model_cpu
+
+    # (d) cli/train on phase 6's root, bf16
+    data, cache = os.path.join(work, "mmwhs"), os.path.join(work, "cache")
+    common = ["--data", data, "--cache", cache, "--target-shape", str(TRAIN_SIZE), "--bf16",
+              "--val", "1", "--workers", "2"]
+    plan = [("nnformer", ["--cfg", os.path.join(ROOT, "configs", "nnformer_mmwhs.yaml"),
+                          "--epochs", "2"], 1, (8, 8)),
+            ("swinunet3d", ["--model", "swinunet3d", "--epochs", "1", "--batch-size", "2"], 2,
+             (2, 2)),
+            ("unet3d", ["--model", "unet3d", "--epochs", "1", "--batch-size", "2"], 2, (2, 2))]
+    for name, args, batch, steps in plan:
+        run = ["--run-dir", os.path.join(work, f"run_{name}")]
+        res["train"][name], trainer = train_run(f"zoo {name}", common + args + run, name,
+                                                batch, steps)
+        del trainer
+        torch.cuda.empty_cache()
+
+    # (e) predict on phase 7's root at 160³, roi 128, sw_batch 4, f32 (TF32 off)
+    data, cache = os.path.join(work, "mmwhs_predict"), os.path.join(work, "cache_predict")
+    size, roi, sw = 160, 128, 4
+    _, _, test_ds = get_datasets(data, cache_dir=cache, target_shape=(size,) * 3)
+    case = test_ds[0]
+    vol = torch.tensor(case["image"][None], device="cuda")
+    grid = ["--data", data, "--cache", cache, "--target-shape", str(size),
+            "--sw-batch-size", str(sw), "--workers", "2"]
+    runs = {"3d": os.path.join(work, "run_nnformer"),
+            "2d": _unet2d_run(os.path.join(work, "run_unet2d"), 2, 21),
+            "p3d": _unet2d_run(os.path.join(work, "run_unet2d_p3d"), 10, 22)}
+    plan = [("nnformer 3d", "3d", ["--roi", str(roi), "--mirror-tta", "--save-softmax"]),
+            ("unet2d 2d", "2d", ["--roi", str(roi), "--engine", "2d"]),
+            ("unet2d p3d", "p3d", ["--roi", str(roi), "--engine", "p3d",
+                                   "--pseudo3d-slices", "5"])]
+    _set_tf32(False)
+    try:
+        for name, run, extra in plan:
+            out = os.path.join(work, f"pred_zoo_{run}")
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            reset_all_routes()
+            t0 = time.perf_counter()
+            recs = predict.main(grid + extra + ["--out", out, "--run-dirs", runs[run]])
+            wall = time.perf_counter() - t0
+            launches, paths = dict(LAUNCHES), dict(ATTENTION_PATHS)
+            peak = torch.cuda.max_memory_allocated()
+            r = {"wall_s": wall, "case_s": [x["seconds"] for x in recs],
+                 "infer_s": [x["infer_seconds"] for x in recs], "launches": launches,
+                 "attention_paths": paths, "max_memory_allocated": peak}
+            res["predict"][name] = r
+            log(f"zoo (e) predict {name}: {len(recs)} cases 2x{size}³ f32 roi {roi} sw_batch "
+                f"{sw}: seconds a case {r['case_s']} (to the label map {r['infer_s']}), wall "
+                f"{wall:.2f} s, peak {peak / 2 ** 30:.2f} GiB, launches {launches}, "
+                f"attention paths {paths}")
+            for x in recs:
+                seg = read_nifti(os.path.join(out, f"{x['patient_id']}_pred.nii.gz"))
+                if seg.shape != (size,) * 3 or seg.max() >= 8:
+                    raise AssertionError(f"predict {name}: bad segmentation {seg.shape}")
+            if len(recs) != 2 or launches != expect() or paths["k1"] or paths["k2"]:
+                raise AssertionError(f"predict {name}: {len(recs)} cases, launches {launches}, "
+                                     f"attention paths {paths}")
+
+        # the 3d engine's softmax against a direct call on the checkpoint
+        model = _run_model(runs["3d"], "cuda")
+        sm = torch.softmax(sliding_window_inference(
+            vol, (roi,) * 3, model, num_classes=8, overlap=0.5, sw_batch_size=sw,
+            mirror_tta=True, tta_batched=False), dim=1)[0].cpu().numpy()
+        saved = np.load(os.path.join(work, "pred_zoo_3d", f"{case['patient_id']}_softmax.npz"))[
+            "softmax"].astype(np.float32)
+        d3 = float(np.abs(sm - saved).max())
+        del model
+        # the 2d engine with one tile a slice (roi = the slice) against a dense
+        # per-slice forward of the same network
+        model = _run_model(runs["2d"], "cuda")
+        with torch.no_grad():
+            tiled = sliding_window_inference_2d(vol, (size, size), model, num_classes=8,
+                                                sw_batch_size=sw)
+            slices = vol[0].permute(1, 0, 2, 3)                  # [D, C, H, W]
+            dense = torch.cat([model(part) for part in slices.split(32)])
+            d2 = (tiled[0].permute(1, 0, 2, 3) - dense).abs().max().item()
+            scale2 = dense.abs().max().item()
+        del model, tiled, dense
+    finally:
+        _set_tf32(True)
+    res["predict"]["nnformer 3d vs direct"] = d3
+    res["predict"]["2d one tile vs dense"] = {"max_abs": d2, "max_logit": scale2}
+    log(f"zoo (e) nnFormer 3d engine softmax vs a direct sliding_window_inference on "
+        f"ckpt_best_dice.pt: max |d| {d3:.3g} (limit 2e-3); 2d engine at roi {size}² (one "
+        f"tile a slice) vs a dense per-slice forward: max |d| {d2:.3g} of max |logit| "
+        f"{scale2:.3g} (limit 1e-4)")
+    if not (d3 <= 2e-3 and d2 <= 1e-4):
+        raise AssertionError(f"zoo predict: 3d vs direct {d3}, 2d vs dense {d2}")
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"zoo (phase 10): {res['wall_s']:.2f} s")
+    return res
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -2010,6 +2272,11 @@ def main():
     dw_pass_sums("dw_conv3 (b4 forward)", dw, DW_SHAPES)
     dw_pass_sums("dw_conv3 dx (b2 step)", dx, DW_TRAIN_SHAPES)
     dw_pass_sums("dw_conv3_wgrad (b2 step)", wgrad, DW_TRAIN_SHAPES)
+    dw_pass_sums("dw_conv3 (SwinUnet3D b4 forward)", dw, SWIN_DW_SHAPES, SWIN_DW_STAGE_LAUNCHES)
+    dw_pass_sums("dw_conv3 dx (SwinUnet3D b2 step)", dx, SWIN_DW_TRAIN_SHAPES,
+                 SWIN_DW_STAGE_LAUNCHES)
+    dw_pass_sums("dw_conv3_wgrad (SwinUnet3D b2 step)", wgrad, SWIN_DW_TRAIN_SHAPES,
+                 SWIN_DW_STAGE_LAUNCHES)
     from micformer_tpu_torch import registry
 
     work = os.path.join(ROOT, ".chip_smoke_work")
@@ -2033,6 +2300,7 @@ def main():
         predicted = phase_predict(work)
         phase_train_rest(work)
         phase_parallel(work, predicted["direct"])
+        phase_zoo(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -1,7 +1,6 @@
 """Batch prediction CLI: sliding window, fold ensemble, mirror TTA.
 
-Counterpart of the `3d` and `spatial` engines of
-`micformer_tpu/cli/predict.py`: for each
+Counterpart of `micformer_tpu/cli/predict.py`: for each
 case of the split, each fold's model (one run directory a fold, weights from
 `ckpt_<tag>.pt`) predicts by sliding window (mirror TTA optional, serial or,
 with MICFORMER_TTA_BATCHED=1, batched), the folds' softmax is averaged, and
@@ -33,8 +32,13 @@ Several ranks (torchrun; see `parallel/distributed.py`) share the work:
     given, must equal the world size; mirror TTA does not apply, as in
     JAX), and the primary rank writes.
 With one process these are the 3d engine at sw_batch 1 and the whole-volume
-forward. The 2d and p3d engines raise NotImplementedError: they wait for
-ROADMAP queue 4.
+forward.
+
+`--engine 2d` predicts slice by slice with a 2D model (a 2D GenericUNet
+run), each slice tiled by roi² (`infer/sliding_window_2d.py`, mirror TTA
+over the in-plane axes); `--engine p3d` feeds it each slice with its
+neighbours stacked into channels (`--pseudo3d-slices`, odd). Both ignore
+`--sharded-tiles`, as JAX's do.
 
     python -m micformer_tpu_torch.cli.predict --data <root> --cache <cache> \
         --run-dirs runs/fold0 runs/fold1 --out preds --target-shape 160 \
@@ -55,9 +59,6 @@ import time
 
 import numpy as np
 import torch
-
-_QUEUE_4 = "ROADMAP queue 4 (the 2D zoo and infer/sliding_window_2d.py)"
-
 
 def _prefetch_cases(ds, indices, depth: int = 2, workers: int = 0,
                     worker_mode: str = "thread"):
@@ -137,13 +138,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sw-batch-size", type=int, default=2)
     p.add_argument("--step-mode", default="monai", choices=["monai", "nnunet"])
     p.add_argument("--engine", default="3d", choices=["3d", "2d", "p3d", "spatial"],
-                   help="3d: volumetric tiles; spatial: one whole-volume GenericUNet "
-                        "forward with D slabbed over the ranks; 2d, p3d: not ported")
+                   help="3d: volumetric tiles; 2d: slice-by-slice 2D tiles of a 2D "
+                        "model; p3d: the same with each slice's neighbours stacked into "
+                        "channels; spatial: one whole-volume GenericUNet forward with D "
+                        "slabbed over the ranks")
     p.add_argument("--spatial-shards", type=int, default=None,
                    help="ranks of --engine spatial (default and only value: the world size)")
     p.add_argument("--sharded-tiles", action="store_true",
                    help="split each case's tile grid over the ranks")
-    p.add_argument("--pseudo3d-slices", type=int, default=None, help="not ported")
+    p.add_argument("--pseudo3d-slices", type=int, default=5,
+                   help="--engine p3d: the odd count of slices each prediction sees")
     p.add_argument("--mirror-tta", action="store_true",
                    help="8-way mirror ensemble; MICFORMER_TTA_BATCHED=1 runs the "
                         "flips as one batched forward")
@@ -172,20 +176,20 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args):
-    """NotImplementedError for an option whose code is not ported yet,
-    naming the ROADMAP queue that ports it."""
-    for given, option, where in (
-            (args.engine in ("2d", "p3d"), f"--engine {args.engine}", _QUEUE_4),
-            (args.pseudo3d_slices is not None, "--pseudo3d-slices", _QUEUE_4)):
-        if given:
-            raise NotImplementedError(f"predict {option} is not ported yet: {where}")
-
-
 def main(argv=None):
     """Predict every case of the split; returns one record a case: its
     patient id, seconds (case loaded to files written), infer_seconds (to
     the label map on the host) and kernel launches."""
+    from micformer_tpu_torch import registry
+    from micformer_tpu_torch.parallel import distributed
+
+    args = build_parser().parse_args(argv)
+    # a group that main joins (torchrun's ranks) it leaves when it ends
+    with distributed.joined(registry.resolve_device(args.device)) as device:
+        return _predict(args, device)
+
+
+def _predict(args, device):
     from micformer_tpu_torch import registry
     from micformer_tpu_torch.config import run_model
     from micformer_tpu_torch.data.cascade import resize_seg_nearest, seg_to_onehot
@@ -193,7 +197,8 @@ def main(argv=None):
     from micformer_tpu_torch.data.mmwhs import get_datasets
     from micformer_tpu_torch.data.nifti import read_nifti, write_nifti
     from micformer_tpu_torch.infer import (
-        sliding_window_inference, sliding_window_inference_sharded,
+        sliding_window_inference, sliding_window_inference_2d,
+        sliding_window_inference_pseudo3d, sliding_window_inference_sharded,
     )
     from micformer_tpu_torch.kernels import LAUNCHES
     from micformer_tpu_torch.parallel import distributed
@@ -203,16 +208,13 @@ def main(argv=None):
     from micformer_tpu_torch.train.checkpoint import CheckpointManager
     from micformer_tpu_torch.train.logging import save_overlay_png
 
-    args = build_parser().parse_args(argv)
-    _refuse_unported(args)
-    device = distributed.initialize(registry.resolve_device(args.device))
     rank, world = distributed.world()
     spatial = args.engine == "spatial"
     if args.spatial_shards is not None and (not spatial or args.spatial_shards != world):
         raise SystemExit(f"--spatial-shards {args.spatial_shards}: --engine spatial runs on "
                          f"every rank, {world} here")
     # every rank predicts every case (and the primary writes), or each its own
-    collective = spatial or args.sharded_tiles
+    collective = spatial or (args.engine == "3d" and args.sharded_tiles)
 
     os.makedirs(args.out, exist_ok=True)
     ts = (args.target_shape,) * 3
@@ -238,10 +240,16 @@ def main(argv=None):
             return spatial_sharded_apply(model, vol)
         common = dict(num_classes=args.num_classes, overlap=args.overlap,
                       step_mode=args.step_mode, mirror_tta=args.mirror_tta)
-        if args.sharded_tiles:
+        if args.engine == "3d" and args.sharded_tiles:
             return sliding_window_inference_sharded(vol, (args.roi,) * 3, predictor, **common)
-        return sliding_window_inference(vol, (args.roi,) * 3, predictor,
-                                        sw_batch_size=args.sw_batch_size, **common)
+        common["sw_batch_size"] = args.sw_batch_size
+        if args.engine == "2d":
+            return sliding_window_inference_2d(vol, (args.roi,) * 2, predictor, **common)
+        if args.engine == "p3d":
+            return sliding_window_inference_pseudo3d(vol, (args.roi,) * 2, predictor,
+                                                     pseudo3d_slices=args.pseudo3d_slices,
+                                                     **common)
+        return sliding_window_inference(vol, (args.roi,) * 3, predictor, **common)
 
     def write_case(i, pid, img, probs, seg):
         """Write the case's files; returns the label map's path."""

@@ -21,11 +21,14 @@ alone with --single-modal), wrapped as JAX wraps it: first the cascade's
 previous-stage channels (`--cascade-prev-seg-dir`), then nnU-Net's
 foreground-oversampled patches (`--oversample-fg`); batches from thread or
 spawned process workers; the `Trainer` with latest / best checkpoints in
---run-dir, `--pretrained` seeding and `--resume`. MedNeXt's stem takes the
-input's channels (1 or 2 modalities, plus num_classes - 1 under the
-cascade) unless --model-kwargs sets `in_channels`; the count is recorded in
-config.json's `model.extra`, so `config.run_model` rebuilds the model for
-cli/predict (GenericUNet's likewise). MicFormer reads CT and MR (channels
+--run-dir, `--pretrained` seeding and `--resume`. Every model but MicFormer
+(MedNeXt, GenericUNet, UNet3D, nnFormer, SwinUnet3D) takes the input's
+channels (1 or 2 modalities, plus num_classes - 1 under the cascade) unless
+--model-kwargs sets `in_channels`; the count is recorded in config.json's
+`model.extra`, so `config.run_model` rebuilds the model for cli/predict.
+A model registered with an `input_size` (nnFormer: it fixes the shapes of
+its bias tables) is built for the patch (--target-shape), recorded likewise.
+MicFormer reads CT and MR (channels
 0 and 1), so it refuses --single-modal.
 
 Data parallelism: `--mesh data=N` trains on N ranks of a process group
@@ -56,16 +59,12 @@ import torch
 
 def main(argv=None):
     from micformer_tpu_torch import registry
-    from micformer_tpu_torch.config import build_argparser, config_from_args, save_config
-    from micformer_tpu_torch.data.loader import DataLoader
-    from micformer_tpu_torch.data.mmwhs import get_datasets
+    from micformer_tpu_torch.config import build_argparser, config_from_args
     from micformer_tpu_torch.parallel import distributed
-    from micformer_tpu_torch.parallel.mesh import is_primary, make_mesh, parse_mesh
-    from micformer_tpu_torch.train.trainer import TrainConfig, Trainer
+    from micformer_tpu_torch.parallel.mesh import parse_mesh
 
     args = build_argparser().parse_args(argv)
     cfg = config_from_args(args)
-    rank, world = 0, 1
     if cfg.train.mesh:
         data = parse_mesh(cfg.train.mesh).get("data")
         if data and cfg.train.batch_size % data:
@@ -73,7 +72,20 @@ def main(argv=None):
                              f"data={data}")
     if not cfg.data.data_root:
         raise SystemExit("--data is required")
-    device = distributed.initialize(registry.resolve_device(args.device))
+    # a group that main joins (torchrun's ranks) it leaves when it ends
+    with distributed.joined(registry.resolve_device(args.device)) as device:
+        return _train(args, cfg, device)
+
+
+def _train(args, cfg, device):
+    from micformer_tpu_torch import registry
+    from micformer_tpu_torch.config import save_config
+    from micformer_tpu_torch.data.loader import DataLoader
+    from micformer_tpu_torch.data.mmwhs import get_datasets
+    from micformer_tpu_torch.parallel.mesh import is_primary, make_mesh
+    from micformer_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    rank, world = 0, 1
     if cfg.train.mesh:
         try:
             mesh = make_mesh(cfg.train.mesh)
@@ -93,10 +105,14 @@ def main(argv=None):
     elif cfg.model.fused_attention:
         raise SystemExit("--fused-attention applies to --model micformer only")
     cfg.model.in_channels = n_mod + (cfg.model.num_classes - 1 if cascade else 0)
-    if cfg.model.name in ("mednext", "generic_unet"):
+    if cfg.model.name != "micformer":
         kwargs.setdefault("in_channels", cfg.model.in_channels)
         cfg.model.in_channels = kwargs["in_channels"]
         cfg.model.extra = {**cfg.model.extra, "in_channels": kwargs["in_channels"]}
+    if "input_size" in registry.defaults(cfg.model.name):
+        # the model's parameter shapes follow the input it is built for
+        kwargs.setdefault("input_size", list(cfg.data.target_shape))
+        cfg.model.extra = {**cfg.model.extra, "input_size": kwargs["input_size"]}
 
     os.makedirs(cfg.train.run_dir, exist_ok=True)
     if is_primary():

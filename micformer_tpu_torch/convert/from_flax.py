@@ -11,6 +11,7 @@ Inverts the layout rules of `micformer_tpu/convert/torch_import.py`:
   - Conv3x3ViaDot taps [27, in, out]       -> Conv3d.weight[:, :, dz, dy, dx] =
                                               taps[dz*9 + dy*3 + dx].T
   - LayerNorm, InstanceNorm scale / bias   -> weight / bias
+  - rel_pos_bias_table, PReLU alpha        -> the same name, as is
 
 The walk follows the flax tree alongside the torch modules: a flax name is
 the torch attribute name, except flax's automatic names, which are renamed per
@@ -34,11 +35,24 @@ _RENAMES = {
     "PatchMergingConv": {"Conv_0": "conv", "LayerNorm_0": "norm"},
     "PatchExpandConv": {"ConvTranspose_0": "conv", "LayerNorm_0": "norm"},
     "ConvInLRelu": {"Conv_0": "conv", "InstanceNorm_0": "norm"},
+    "ConvNormAct": {"Conv_0": "conv", "ConvTranspose_0": "conv", "PReLU_0": "act"},
+    "ConvStem": {"Conv_0": "conv1", "LayerNorm_0": "norm1", "Conv_1": "conv2",
+                 "LayerNorm_1": "norm2"},
+    "ChannelNorm": {"LayerNorm_0": "norm"},
+    "GatedConvBlock": {"Conv_0": "conv1", "ChannelNorm_0": "norm1", "PReLU_0": "act1",
+                       "Conv_1": "conv2", "ChannelNorm_1": "norm2", "PReLU_1": "act2"},
+    "SwinStage": {"ChannelNorm_0": "norm"},
+    "SwinUnet3D": {"ChannelNorm_0": "final_norm", "PReLU_0": "final_act"},
 }
+# leaves kept as they are, by flax name: relative-position bias tables
+# [rows, heads] and PReLU slopes
+_AS_IS = ("rel_pos_bias_table", "alpha")
 
 
 def _convert_leaf(mod: nn.Module, key: str, a: np.ndarray, path: str):
     """(torch parameter name within mod, tensor) for flax leaf `key`."""
+    if key in _AS_IS:
+        return key, a
     if isinstance(mod, (nn.LayerNorm, InstanceNorm)):
         return {"scale": "weight", "bias": "bias"}[key], a
     if key == "bias":

@@ -22,28 +22,12 @@ Module names follow the flax tree (`enc{i}_conv{c}`, `dec{j}_conv{c}`,
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from micformer_tpu_torch import registry
-from micformer_tpu_torch.models.layers import InstanceNorm
-
-
-def same_pads(n: int, k: int, s: int) -> tuple[int, int]:
-    """flax "SAME" padding (lo, hi) of one axis of extent n."""
-    total = max((math.ceil(n / s) - 1) * s + k - n, 0)
-    return total // 2, total - total // 2
-
-
-def conv_same(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """conv (padding 0) on x zero-padded as flax's "SAME" pads it."""
-    pads = []
-    for n, k, s in reversed(list(zip(x.shape[2:], conv.kernel_size, conv.stride))):
-        pads += same_pads(n, k, s)
-    return conv(F.pad(x, pads) if any(pads) else x)
+from micformer_tpu_torch.models.layers import InstanceNorm, conv_same, same_pads  # noqa: F401
 
 
 def _conv_cls(ndim: int, transpose: bool = False):

@@ -1,13 +1,18 @@
-"""The building blocks of MicFormer and MedNeXt.
+"""The building blocks of MicFormer, MedNeXt and the zoo.
 
-Counterpart of the subsets of `micformer_tpu/models/layers.py` that the two
-models use. The JAX package's lane-major, via-dot, blocked and W-packed
-forms are TPU layouts of the same math; this is the plain math.
+Counterpart of the subsets of `micformer_tpu/models/layers.py` that the
+port's models use. The JAX package's lane-major, via-dot, blocked and
+W-packed forms are TPU layouts of the same math; this is the plain math.
 
-MicFormer's blocks work on channels-last [B, D, H, W, C] tensors: Mlp,
-DropPath, WindowAttention3D (self and cross, no relative-position bias), the
-unshifted SwinBlock3D, PatchEmbed3D, PatchMergingConv, PatchExpandConv and
+The window blocks work on channels-last [B, D, H, W, C] tensors: Mlp,
+DropPath, WindowAttention3D (self and cross; relative-position bias,
+masks and the SwinUnet3D window scramble for the zoo), SwinBlock3D (shifted
+or not), PatchEmbed3D, PatchMergingConv, PatchExpandConv and
 pad_to_multiple. Their convolutions take the channels-first view.
+
+The conv blocks of the zoo work on channels-first [B, C, *spatial] tensors:
+PReLU and ConvNormAct (convs padded as flax's "SAME" pads them: same_pads,
+conv_same).
 
 MedNeXt's blocks work on channels-first [B, C, D, H, W] tensors, the layout
 the depthwise kernel takes, in which cuDNN's strided and transposed convs,
@@ -23,6 +28,7 @@ import contextlib
 import contextvars
 import math
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -32,7 +38,8 @@ from micformer_tpu_torch.ops.attention import (
     merge_heads, multi_head_attention, split_heads,
 )
 from micformer_tpu_torch.ops.windows import (
-    adjust_window_shift, window_partition, window_reverse,
+    adjust_window_shift, cyclic_shift, relative_position_index, shifted_window_region_ids,
+    window_partition, window_reverse,
 )
 
 LN_EPS = 1e-5
@@ -65,6 +72,33 @@ def pad_to_multiple(x: torch.Tensor, multiple) -> torch.Tensor:
     if pd or ph or pw:
         x = F.pad(x, (0, 0, 0, pw, 0, ph, 0, pd))
     return x
+
+
+def same_pads(n: int, k: int, s: int) -> tuple[int, int]:
+    """flax "SAME" padding (lo, hi) of one axis of extent n."""
+    total = max((math.ceil(n / s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def conv_same(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """conv (padding 0) on channels-first x zero-padded as flax's "SAME"
+    pads it."""
+    pads = []
+    for n, k, s in reversed(list(zip(x.shape[2:], conv.kernel_size, conv.stride))):
+        pads += same_pads(n, k, s)
+    return conv(F.pad(x, pads) if any(pads) else x)
+
+
+def conv_transpose_same(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A transposed conv (padding 0) cropped to flax's ConvTranspose with
+    "SAME" padding: n·s per axis. flax pads the dilated input by
+    (a, k + s - 2 - a), a = k - 1 when s > k - 1 else ceil((k + s - 2) / 2);
+    the full transposed conv is that input padded by k - 1 on both sides."""
+    sl = [slice(None), slice(None)]
+    for n, k, s in zip(x.shape[2:], conv.kernel_size, conv.stride):
+        a = k - 1 if s > k - 1 else -(-(k + s - 2) // 2)
+        sl.append(slice(k - 1 - a, k - 1 - a + n * s))
+    return conv(x)[tuple(sl)]
 
 
 class Mlp(nn.Module):
@@ -101,63 +135,142 @@ class DropPath(nn.Module):
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
+def add_rel_pos_table(module: nn.Module, window_size, num_heads: int) -> None:
+    """Give `module` a relative-position bias table for `window_size`,
+    `rel_pos_bias_table` [(2wd-1)(2wh-1)(2ww-1), heads] (the flax leaf's name
+    and shape), and its index as a buffer that no state_dict holds."""
+    wd, wh, ww = module.table_window = tuple(window_size)
+    module.rel_pos_bias_table = nn.Parameter(
+        torch.zeros((2 * wd - 1) * (2 * wh - 1) * (2 * ww - 1), num_heads))
+    module.register_buffer("rel_pos_index", torch.from_numpy(
+        relative_position_index(module.table_window).astype(np.int64)), persistent=False)
+
+
+def rel_pos_bias(module: nn.Module, window_size) -> torch.Tensor:
+    """[h, T, T]: `module`'s table gathered each call at its window's
+    relative_position_index, as the JAX layer gathers it (no cache). The
+    call's (clamped) window must be the table's: the JAX layer's table takes
+    the window clamped to the input it was initialised on, and an input that
+    clamps otherwise fails there on the table's shape."""
+    if tuple(window_size) != module.table_window:
+        raise ValueError(f"window {tuple(window_size)} of this input, but the bias table "
+                         f"is for window {module.table_window}: build the model with the "
+                         "input_size it is called at")
+    T = len(module.rel_pos_index)
+    return module.rel_pos_bias_table[module.rel_pos_index.reshape(-1)].reshape(
+        T, T, -1).permute(2, 0, 1)
+
+
 class WindowAttention3D(nn.Module):
     """Windowed multi-head attention over [N, T, C] token windows.
 
     cross=False: fused qkv projection (split into thirds). cross=True: q from
     x, k and v from `context` through one kv projection (k is the first
-    half). fused_attention selects `multi_head_attention(..., fused=True)`,
-    the fused kernel K2 on the card."""
+    half). Projections are heads · head_dim wide (dim when head_dim is None).
+    rel_pos_bias: a learned table
+    [(2wd-1)(2wh-1)(2ww-1), heads] for `window_size`, gathered each forward
+    by relative_position_index(window_size) (`rel_pos_bias`). fused_attention selects
+    `multi_head_attention(..., fused=True)`, the fused kernel K2 on the
+    card."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
-                 cross: bool = False, fused_attention: bool = False):
+                 cross: bool = False, fused_attention: bool = False,
+                 window_size=None, rel_pos_bias: bool = False, head_dim: int | None = None):
         super().__init__()
         self.num_heads = num_heads
         self.cross = cross
         self.fused_attention = fused_attention
+        inner = head_dim * num_heads if head_dim else dim
         if cross:
-            self.q = nn.Linear(dim, dim, bias=qkv_bias)
-            self.kv = nn.Linear(dim, 2 * dim, bias=qkv_bias)
+            self.q = nn.Linear(dim, inner, bias=qkv_bias)
+            self.kv = nn.Linear(dim, 2 * inner, bias=qkv_bias)
         else:
-            self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
-        self.proj = nn.Linear(dim, dim)
+            self.qkv = nn.Linear(dim, 3 * inner, bias=qkv_bias)
+        self.proj = nn.Linear(inner, dim)
+        self.rel_pos_bias_table = None
+        if rel_pos_bias:
+            add_rel_pos_table(self, window_size, num_heads)
 
-    def forward(self, x, context=None):
+    def forward(self, x, context=None, mask=None, window_perm=None, window=None):
+        """mask: multi_head_attention's ([nW, T] region ids or [nW, T, T]).
+        window_perm: SwinUnet3D's scramble of the window grid, applied to q
+        and k (not v): window w of each batch element attends with window
+        perm[w]'s q·k. window: the windows' [wd, wh, ww], which a rel-pos
+        bias needs."""
         h = self.num_heads
         if self.cross:
             q = self.q(x)
             k, v = self.kv(x if context is None else context).chunk(2, dim=-1)
         else:
             q, k, v = self.qkv(x).chunk(3, dim=-1)
-        out = multi_head_attention(split_heads(q, h), split_heads(k, h),
-                                   split_heads(v, h), fused=self.fused_attention)
+        if window_perm is not None:
+            nW = len(window_perm)
+            idx = (torch.arange(x.shape[0] // nW)[:, None] * nW
+                   + torch.as_tensor(window_perm)).reshape(-1).to(x.device)
+            q, k = q[idx], k[idx]
+        bias = None if self.rel_pos_bias_table is None else rel_pos_bias(self, window)
+        out = multi_head_attention(split_heads(q, h), split_heads(k, h), split_heads(v, h),
+                                   bias=bias, mask=mask,
+                                   fused=self.fused_attention)
         return self.proj(merge_heads(out))
 
 
 class SwinBlock3D(nn.Module):
-    """Pre-norm window transformer block without shift or bias (MicFormer's
-    TransformerBlock3D): x + attn(LN(x)), then x + mlp(LN(x))."""
+    """Pre-norm (shifted-)window transformer block: x + attn(LN(x)), then
+    x + mlp(LN(x)), each branch through DropPath.
+
+    MicFormer's TransformerBlock3D is the unshifted, unbiased form. The zoo's
+    steps: the window clamped to the input (`adjust_window_shift`, which
+    also zeroes the shift on clamped axes), pad, cyclic shift, region-id
+    mask, partition, attention, reverse, unshift, crop. swinunet_scramble
+    keeps SwinUnet3D's reference quirks: no clamp, and on a cubic window grid
+    the shifted windows' grid flattened as (z, x, y) for q·k.
+
+    input_size: the [D, H, W] the block is built for. With a rel-pos bias
+    the table is that of the window clamped to it, as the JAX block's table
+    is that of the window clamped to the input it was initialised on; None
+    builds it for the configured window."""
 
     def __init__(self, dim: int, num_heads: int, window_size=(4, 4, 4),
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
-                 drop_path: float = 0.0, fused_attention: bool = False):
+                 drop_path: float = 0.0, fused_attention: bool = False,
+                 shift_size=(0, 0, 0), rel_pos_bias: bool = False,
+                 head_dim: int | None = None, swinunet_scramble: bool = False,
+                 input_size=None):
         super().__init__()
         self.window_size = tuple(window_size)
+        self.shift_size = tuple(shift_size)
+        self.swinunet_scramble = swinunet_scramble
+        table_window = self.window_size
+        if input_size is not None and not swinunet_scramble:
+            table_window = adjust_window_shift(tuple(input_size), self.window_size)
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn = WindowAttention3D(dim, num_heads, qkv_bias,
-                                      fused_attention=fused_attention)
+        self.attn = WindowAttention3D(dim, num_heads, qkv_bias, fused_attention=fused_attention,
+                                      window_size=table_window, rel_pos_bias=rel_pos_bias,
+                                      head_dim=head_dim)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
         self.drop_path = DropPath(drop_path)
 
     def forward(self, x, generator=None):
         B, D, H, W, C = x.shape
-        ws = adjust_window_shift((D, H, W), self.window_size)
-        xn = pad_to_multiple(self.norm1(x), ws)
+        if self.swinunet_scramble:
+            ws, ss = self.window_size, self.shift_size
+        else:
+            ws, ss = adjust_window_shift((D, H, W), self.window_size, self.shift_size)
+        xn = cyclic_shift(pad_to_multiple(self.norm1(x), ws), ss)
         _, Dp, Hp, Wp, _ = xn.shape
-        a = self.attn(window_partition(xn, ws))
-        a = window_reverse(a, ws, B, Dp, Hp, Wp)[:, :D, :H, :W]
-        x = x + self.drop_path(a, generator)
+        ids = shifted_window_region_ids((Dp, Hp, Wp), ws, ss)
+        perm = None
+        if self.swinunet_scramble and any(ss):
+            g = (Dp // ws[0], Hp // ws[1], Wp // ws[2])
+            if g[0] == g[1] == g[2] and g[0] > 1:
+                perm = np.arange(g[0] * g[1] * g[2]).reshape(g).transpose(2, 0, 1).ravel()
+                ids = ids[perm]
+        mask = None if ids is None else torch.from_numpy(ids).to(x.device)
+        a = self.attn(window_partition(xn, ws), mask=mask, window_perm=perm, window=ws)
+        a = cyclic_shift(window_reverse(a, ws, B, Dp, Hp, Wp), ss, reverse=True)
+        x = x + self.drop_path(a[:, :D, :H, :W], generator)
         return x + self.drop_path(self.mlp(self.norm2(x)), generator)
 
 
@@ -200,15 +313,17 @@ class PatchExpandConv(nn.Module):
 
 
 class InstanceNorm(nn.Module):
-    """Affine instance norm of [B, C, *spatial] over the spatial axes
-    (MedNeXt's GroupNorm with one group per channel). Statistics in f32 as the JAX
-    default computes them, E[x²] − E[x]² clamped at 0; output in x's dtype."""
+    """Instance norm of [B, C, *spatial] over the spatial axes, affine
+    (MedNeXt's GroupNorm with one group per channel, GenericUNet's) or not
+    (the zoo's ConvNormAct, torch's InstanceNorm3d default). Statistics in
+    f32 as the JAX default computes them, E[x²] − E[x]² clamped at 0;
+    output in x's dtype."""
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5, affine: bool = True):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(num_features))
-        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.weight = nn.Parameter(torch.ones(num_features)) if affine else None
+        self.bias = nn.Parameter(torch.zeros(num_features)) if affine else None
 
     def forward(self, x):
         dims = tuple(range(2, x.dim()))
@@ -219,9 +334,43 @@ class InstanceNorm(nn.Module):
         shape = (1, -1) + (1,) * len(dims)
         # ((x - mean) * rsqrt(var + eps)) * weight + bias as one pass over x
         # with per-(b, c) factors
-        scale = torch.rsqrt(var + self.eps) * self.weight.float().view(shape)
+        scale = torch.rsqrt(var + self.eps)
+        if self.weight is None:
+            return ((xf - mean) * scale).to(x.dtype)
+        scale = scale * self.weight.float().view(shape)
         shift = self.bias.float().view(shape) - mean * scale
         return torch.addcmul(shift, xf, scale).to(x.dtype)
+
+
+class PReLU(nn.Module):
+    """Parametric ReLU with one shared slope `alpha` (torch's PReLU default,
+    0.25 at init)."""
+
+    def __init__(self, init: float = 0.25):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.full((1,), init))
+
+    def forward(self, x):
+        return torch.where(x >= 0, x, self.alpha.to(x.dtype) * x)
+
+
+class ConvNormAct(nn.Module):
+    """Conv (or transposed conv) with flax's "SAME" padding, a non-affine
+    instance norm and a PReLU, on [B, C, D, H, W]: UNet3D's unit, the JAX
+    ConvNormAct's defaults."""
+
+    def __init__(self, in_ch: int, features: int, kernel: int = 3, stride: int = 1,
+                 transpose: bool = False):
+        super().__init__()
+        self.transpose = transpose
+        conv = nn.ConvTranspose3d if transpose else nn.Conv3d
+        self.conv = conv(in_ch, features, kernel, stride=stride)
+        self.norm = InstanceNorm(features, affine=False)
+        self.act = PReLU()
+
+    def forward(self, x):
+        x = conv_transpose_same(self.conv, x) if self.transpose else conv_same(self.conv, x)
+        return self.act(self.norm(x))
 
 
 class DepthwiseConv3D(nn.Conv3d):

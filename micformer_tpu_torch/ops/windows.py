@@ -1,12 +1,17 @@
 """3D window partitioning on channels-last [B, D, H, W, C] tensors.
 
-Counterpart of `micformer_tpu/ops/windows.py` (partition, reverse and the
-window clamp; shifted-window masks and relative-position indices come with
-the models that use them).
+Counterpart of `micformer_tpu/ops/windows.py`: partition, reverse, the
+window clamp, the cyclic shift, and the shifted-window region ids and
+relative-position indices, which are numpy built on the host once per
+shape (as the JAX package builds them at trace time) and reach the device
+with the attention that uses them.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 
@@ -45,3 +50,57 @@ def adjust_window_shift(input_size, window_size, shift_size=None):
     if ss is None:
         return tuple(ws)
     return tuple(ws), tuple(ss)
+
+
+def _region_ids(dims, window_size, shift_size) -> np.ndarray:
+    """int32 [nWindows, T]: the pre-shift region (0-26) of every token of
+    every window of a cyclic-shifted [D, H, W] grid."""
+    D, H, W = dims
+    img_mask = np.zeros((D, H, W), np.int32)
+
+    def spans(w, s):
+        return (slice(0, -w), slice(-w, -s if s else None),
+                slice(-s, None) if s else slice(0, 0))
+
+    cnt = 0
+    for d in spans(window_size[0], shift_size[0]):
+        for h in spans(window_size[1], shift_size[1]):
+            for w in spans(window_size[2], shift_size[2]):
+                img_mask[d, h, w] = cnt
+                cnt += 1
+    wd, wh, ww = window_size
+    m = img_mask.reshape(D // wd, wd, H // wh, wh, W // ww, ww)
+    return m.transpose(0, 2, 4, 1, 3, 5).reshape(-1, wd * wh * ww)
+
+
+@functools.lru_cache(maxsize=None)
+def shifted_window_region_ids(dims, window_size, shift_size) -> np.ndarray | None:
+    """Compact shifted-window mask: int32 [nWindows, T] region ids (the
+    attention turns equal ids into 0 and others into -100), or None when no
+    axis is shifted. Cached: callers must not write into the result."""
+    if not any(shift_size):
+        return None
+    return _region_ids(dims, window_size, shift_size)
+
+
+@functools.lru_cache(maxsize=None)
+def relative_position_index(window_size) -> np.ndarray:
+    """int32 [T, T] index into a ((2wd-1)(2wh-1)(2ww-1),) bias table: per-axis
+    coordinate deltas shifted to be nonnegative, mixed-radix flattened.
+    Cached: callers must not write into the result."""
+    wd, wh, ww = window_size
+    coords = np.stack(np.meshgrid(np.arange(wd), np.arange(wh), np.arange(ww),
+                                  indexing="ij")).reshape(3, -1)
+    rel = (coords[:, :, None] - coords[:, None, :]).transpose(1, 2, 0).astype(np.int64)
+    rel += np.array([wd - 1, wh - 1, ww - 1])
+    rel[..., 0] *= (2 * wh - 1) * (2 * ww - 1)
+    rel[..., 1] *= 2 * ww - 1
+    return rel.sum(-1).astype(np.int32)
+
+
+def cyclic_shift(x: torch.Tensor, shift_size, reverse: bool = False) -> torch.Tensor:
+    """Roll a [B, D, H, W, C] volume by -shift (by +shift when reverse)."""
+    if not any(shift_size):
+        return x
+    sign = 1 if reverse else -1
+    return torch.roll(x, shifts=tuple(sign * s for s in shift_size), dims=(1, 2, 3))

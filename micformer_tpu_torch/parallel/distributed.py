@@ -23,6 +23,7 @@ Nothing retries on another backend after a failure.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 
@@ -110,7 +111,34 @@ def barrier():
         dist.barrier()
 
 
-def shutdown():
-    """Leave the group, if there is one."""
+def shutdown(wait: bool = True):
+    """Leave the group, if there is one.
+
+    wait: first meet every rank at a barrier, so that every rank is done
+    with the group and its store before any rank tears its own down. A rank
+    leaving on an error passes False: peers that never reach the barrier
+    would hold it up for TIMEOUT. The group is freed only when nothing else
+    holds it (see `parallel/mesh.py`'s all-reduce)."""
     if dist.is_initialized():
+        if wait:
+            barrier()
         dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def joined(device="cpu", **kwargs):
+    """`initialize(device, **kwargs)` for the body of a with statement,
+    which gets the rank's device. A group that this call joined is left on
+    the way out: after the barrier when the body ends, without it when the
+    body raises. A group joined before is kept, for its owner to leave."""
+    owner = not dist.is_initialized()
+    dev = initialize(device, **kwargs)
+    owner = owner and dist.is_initialized()
+    try:
+        yield dev
+    except BaseException:
+        if owner:
+            shutdown(wait=False)
+        raise
+    if owner:
+        shutdown()

@@ -93,12 +93,33 @@ def rank_rows(batch: int, rank: int, world_size: int) -> slice:
     return slice(rank * per, (rank + 1) * per)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Σ over the ranks, whose backward sums the gradient over the ranks.
+
+    torch.distributed.nn.functional.all_reduce computes the same, but its
+    default `group=group.WORLD` is bound when that module is first imported:
+    imported once a group exists, it holds the group past
+    destroy_process_group, until the interpreter tears down, where gloo's
+    group can end the process with SIGABRT and leave its FileStore file."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
 def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
     """Σ over the group's ranks of x, differentiable: the backward sums the
-    incoming gradient over the ranks too (torch.distributed.nn)."""
-    from torch.distributed.nn.functional import all_reduce
-
-    return all_reduce(x, group=group)
+    incoming gradient over the ranks too."""
+    return _AllReduceSum.apply(x, group)
 
 
 class _AllGather(torch.autograd.Function):

@@ -28,7 +28,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from micformer_tpu_torch.models.generic_unet import same_pads
+from micformer_tpu_torch.models.layers import same_pads
 
 
 def _group_rank(group):

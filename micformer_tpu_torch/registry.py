@@ -42,10 +42,18 @@ def register(name: str, **defaults):
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Re-draw every parameter: kernels from a truncated normal of variance
-    1/fan_in, biases zero, norm weights one."""
-    from micformer_tpu_torch.models.layers import InstanceNorm
+    1/fan_in, biases zero, norm weights one, relative-position bias tables
+    from a normal of std 0.02 truncated at two std (flax's truncated_normal),
+    PReLU slopes 0.25."""
+    from micformer_tpu_torch.models.layers import InstanceNorm, PReLU
 
     for mod in model.modules():
+        if getattr(mod, "rel_pos_bias_table", None) is not None:
+            with torch.no_grad():
+                nn.init.trunc_normal_(mod.rel_pos_bias_table, 0.0, 0.02, -0.04, 0.04,
+                                      generator=generator)
+        elif isinstance(mod, PReLU):
+            nn.init.constant_(mod.alpha, 0.25)
         if isinstance(mod, (nn.Linear, nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d,
                             nn.ConvTranspose3d)):
             w = mod.weight
@@ -58,9 +66,24 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                                       generator=generator)
                 if mod.bias is not None:
                     mod.bias.zero_()
-        elif isinstance(mod, (nn.LayerNorm, InstanceNorm)):
+        elif isinstance(mod, (nn.LayerNorm, InstanceNorm)) and mod.weight is not None:
             nn.init.ones_(mod.weight)
             nn.init.zeros_(mod.bias)
+
+
+def _lookup(name: str):
+    if name not in _REGISTRY:
+        from micformer_tpu_torch import models  # noqa: F401  (registers)
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown model '{name}'; available: {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def defaults(name: str) -> dict:
+    """The kwargs `name` was registered with. A model whose parameter shapes
+    follow the input it is built for registers `input_size=None`, and the
+    trainer fills it in with its patch."""
+    return dict(_lookup(name)[1])
 
 
 def build(name: str, *, dtype: torch.dtype = torch.float32, device="cuda",
@@ -68,13 +91,9 @@ def build(name: str, *, dtype: torch.dtype = torch.float32, device="cuda",
     """Instantiate a registered model; kwargs override registered defaults.
 
     generator: CPU generator for the weights (default: seed 0)."""
-    if name not in _REGISTRY:
-        from micformer_tpu_torch import models  # noqa: F401  (registers)
-    if name not in _REGISTRY:
-        raise KeyError(f"unknown model '{name}'; available: {sorted(_REGISTRY)}")
+    fn, registered = _lookup(name)
     dev = resolve_device(device)
-    fn, defaults = _REGISTRY[name]
-    model = fn(**{**defaults, **kwargs})
+    model = fn(**{**registered, **kwargs})
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     init_weights(model, generator)

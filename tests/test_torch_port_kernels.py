@@ -743,3 +743,109 @@ def test_dw_conv3_forced_routes_agree_on_card(cuda_device):
     for dw, db in grads:
         torch.testing.assert_close(dw, ref[0], **DW_BWD_TOL[torch.float32])
         torch.testing.assert_close(db, ref[1], **DW_BWD_TOL[torch.float32])
+
+
+# ---- the zoo on the card: SwinUnet3D's gated convs and the attention paths ----
+
+# SwinUnet3D's gated depthwise convs (groups = channels, k3, bias): its four
+# stage shapes serving at sw_batch 4, roi 128 ([4, C, n³]) and their
+# training b2 counterparts
+SWIN_DW = [(4, 96, 32, 32, 32), (4, 192, 16, 16, 16), (4, 384, 8, 8, 8), (4, 768, 4, 4, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SWIN_DW + [(2,) + s[1:] for s in SWIN_DW])
+def test_dw_conv3_swinunet3d_shapes_match_reference_on_card(cuda_device, shape):
+    """K3 forward with bias and its backward (dx through K3, dw and db
+    through the wgrad kernel) at 96-768 channels, f32 and bf16, each launch
+    on the route `_dw_route` picks (bf16 at 4³: cp_async, 8-byte rows)."""
+    rng = np.random.default_rng(sum(shape))
+    arrays = [rng.normal(size=shape), rng.normal(size=(shape[1], 1, 3, 3, 3)) / 3 ** 1.5,
+              rng.normal(size=shape), rng.normal(size=shape[1])]
+    for dt in (torch.float32, torch.bfloat16):
+        x, w, g, b = (torch.from_numpy(a.astype(np.float32)).to(cuda_device, dt)
+                      for a in arrays)
+        route = _dw_route(x.shape, dt, 3, x.data_ptr())
+        before = ROUTES["dw_conv3"][route]
+        got = dw_conv3(x, w, b)
+        torch.cuda.synchronize()
+        assert ROUTES["dw_conv3"][route] == before + 1
+        torch.testing.assert_close(got.float(), dw_conv3_reference(x, w, b).float(),
+                                   **DW_TOL[dt])
+        grads = dw_conv3_backward(x, w, g)
+        torch.cuda.synchronize()
+        for name, a, r in zip(("dx", "dw", "db"), grads, dw_conv3_backward_reference(x, w, g)):
+            tol = DW_TOL[dt] if name == "dx" else DW_BWD_TOL[dt]
+            torch.testing.assert_close(a.float(), r.float(), **tol, msg=f"{name} {dt}")
+    assert _dw_route(SWIN_DW[3], torch.bfloat16, 3, 0) == "cp_async"
+
+
+@pytest.mark.cuda
+def test_attention_paths_on_card(cuda_device):
+    """Unbiased, unmasked T <= 16: K1 (or K2 under fused=True); a bias, a
+    mask or T > 16: the plain chain, no kernel launch. The card's chain and
+    its CPU run each lie within the f32 rounding bound of an f64 run
+    (`torch_port_attn_ref.f32_bound`), and within 1e-5 of each other; a
+    failure names the side and the matmul precision settings."""
+    from micformer_tpu_torch.kernels import ATTENTION_PATHS, reset_launches
+    from micformer_tpu_torch.ops.attention import multi_head_attention
+    from torch_port_attn_ref import chain_f64, f32_bound
+
+    rng = np.random.default_rng(3)
+
+    def arr(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    reset_launches()
+    q, k, v = arr(64, 8, 4, 32), arr(64, 8, 4, 32), arr(64, 8, 4, 32)
+    multi_head_attention(*(t.to(cuda_device) for t in (q, k, v)))
+    multi_head_attention(*(t.to(cuda_device) for t in (q, k, v)), fused=True)
+    assert ATTENTION_PATHS == {"k1": 1, "k2": 1, "matmul": 0}
+    assert LAUNCHES["window_attention"] == 1 and LAUNCHES["fused_window_attention"] == 1
+    q, k, v, bias = arr(16, 64, 3, 32), arr(16, 64, 3, 32), arr(16, 64, 3, 32), arr(3, 64, 64)
+    ids = torch.from_numpy(rng.integers(0, 4, (4, 64)).astype(np.int32))
+    want = multi_head_attention(q, k, v, bias=bias, mask=ids)
+    got = multi_head_attention(*(t.to(cuda_device) for t in (q, k, v)),
+                               bias=bias.to(cuda_device), mask=ids.to(cuda_device))
+    multi_head_attention(*(t.to(cuda_device) for t in (q, k, v)))
+    assert ATTENTION_PATHS == {"k1": 1, "k2": 1, "matmul": 3}
+    assert LAUNCHES["window_attention"] == 1 and LAUNCHES["fused_window_attention"] == 1
+    settings = (f"allow_tf32 {torch.backends.cuda.matmul.allow_tf32}, float32 matmul "
+                f"precision {torch.get_float32_matmul_precision()}, blas "
+                f"{torch.backends.cuda.preferred_blas_library()}")
+    ref, bound = chain_f64(q, k, v, bias, ids)[0], f32_bound(q, k, v, bias, ids)
+    for side, out in (("card", got.cpu()), ("cpu", want)):
+        ratio = ((out.double() - ref).abs() / bound).max().item()
+        assert ratio <= 1, f"{side}: {ratio:.3g} of the f32 bound from f64 ({settings})"
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5, msg=lambda m: f"{m} "
+                               f"({settings})")
+
+
+@pytest.mark.cuda
+def test_swinunet3d_forward_launches_k3_on_card(cuda_device):
+    """A narrow SwinUnet3D forward at 32³ launches 14 K3 (seven stages, two
+    convs each; the pure sibling none) and matches its CPU run. Its window 4
+    clamps at the 2³ and 1³ stages (down4, features, up4: 10 blocks of 8 and
+    1 tokens, unbiased, which is K1's regime); the 8³ and 4³ stages' 8
+    blocks take the plain chain."""
+    from micformer_tpu_torch import registry
+    from micformer_tpu_torch.kernels import ATTENTION_PATHS, reset_launches
+
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(1, 2, 32, 32, 32))
+                         .astype(np.float32))
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, n in (("swinunet3d", 14), ("swinunet3d_pure", 0)):
+            cpu = registry.build(name, device="cpu", hidden_dim=24, head_dim=8)
+            card = registry.build(name, device=cuda_device, hidden_dim=24, head_dim=8)
+            card.load_state_dict(cpu.state_dict())
+            reset_launches()
+            with torch.no_grad():
+                got = card(x.to(cuda_device)).cpu()
+                launches, paths = dict(LAUNCHES), dict(ATTENTION_PATHS)
+                want = cpu(x)
+            assert launches["dw_conv3"] == n and launches["window_attention"] == 10
+            assert paths == {"k1": 10, "k2": 0, "matmul": 8}
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * want.abs().max().item())
+    finally:
+        torch.backends.cudnn.allow_tf32 = True

@@ -71,11 +71,14 @@ def test_attention_matches_pallas_v2_interpret():
 
 
 def test_attention_rejects_bias_mask_and_bad_shapes():
-    q, k, v = (torch.zeros(2, 8, 3, 16) for _ in range(3))
-    with pytest.raises(NotImplementedError):
-        tattn.multi_head_attention(q, k, v, bias=torch.zeros(3, 8, 8))
-    with pytest.raises(NotImplementedError):
-        tattn.multi_head_attention(q, k, v, mask=torch.zeros(1, 8, 8))
+    """A bias or a mask is no longer refused: it takes the plain chain, which
+    equals K1's plain version when both are zero. Bad shapes and dtypes still
+    raise."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(5, 2, 8, 8, 3, 16))
+    plain = window_attention(q, k, v)
+    for kw in (dict(bias=torch.zeros(3, 8, 8)), dict(mask=torch.zeros(1, 8, 8))):
+        torch.testing.assert_close(tattn.multi_head_attention(q, k, v, **kw), plain,
+                                   rtol=0, atol=1e-6)
     with pytest.raises(ValueError):
         window_attention(q, k[:, :, :2], v)
     with pytest.raises(ValueError):

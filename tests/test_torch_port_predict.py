@@ -53,6 +53,16 @@ AFFINE = np.array([[0.0, -1.25, 0.0, 31.0], [1.5, 0.0, 0.0, -14.5],
 GRID = ["--target-shape", "32", "--roi", "32", "--sw-batch-size", "2"]
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """Torch on one thread: the port's runs here are tiny, and beside other
+    test workers a pool of threads each only contends for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _arr(seed, shape):
     return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
 
@@ -257,10 +267,11 @@ def test_predict_workers_give_the_same_files(data_root, runs, tmp_path):
             np.testing.assert_array_equal(v, ref[k])
 
 
-def _generic_unet_run(run):
-    """A port run dir of a tiny GenericUNet (base 4, two (2, 2, 2) pools)."""
-    kw = dict(base_num_features=4, pool_kernels=[[2, 2, 2]] * 2, conv_kernels=[[3, 3, 3]] * 3,
-              in_channels=2)
+def _generic_unet_run(run, in_channels=2, ndim=3):
+    """A port run dir of a tiny GenericUNet (base 4, two (2, 2, 2) pools, or
+    (2, 2) in 2D)."""
+    kw = dict(base_num_features=4, pool_kernels=[[2] * ndim] * 2,
+              conv_kernels=[[3] * ndim] * 3, in_channels=in_channels)
     cfg = tcfg.Config()
     cfg.model.name = "generic_unet"
     cfg.model.extra = kw
@@ -286,22 +297,20 @@ def _same_predictions(a, b):
 
 
 @pytest.mark.parametrize("args, expect", [
-    (["--engine", "2d"], "queue 4"), (["--engine", "p3d"], "queue 4"),
+    (["--engine", "2d"], "slices"), (["--engine", "p3d"], "slices"),
     (["--engine", "spatial"], "whole-volume forward"), (["--spatial-shards", "2"], "refused"),
-    (["--pseudo3d-slices", "5"], "queue 4"), (["--sharded-tiles"], "sw_batch 1"),
+    (["--pseudo3d-slices", "5"], "3d engine"), (["--sharded-tiles"], "sw_batch 1"),
 ], ids=["args0-queue 4", "args1-queue 4", "args2-queue 3", "args3-queue 3", "args4-queue 4",
         "args5-queue 3"])
 def test_unported_options_raise(data_root, runs, tmp_path, args, expect):
-    """The 2D engines still raise, naming ROADMAP queue 4. At world size 1
-    --sharded-tiles is the 3d engine at sw_batch 1, and --engine spatial the
-    whole-volume forward of a GenericUNet run (the 3d engine with the roi
-    equal to the volume); --spatial-shards other than the world size is
-    refused."""
-    if expect == "queue 4":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {expect}"):
-            tpredict.main(["--data", str(tmp_path), "--run-dirs", str(tmp_path),
-                           "--device", "cpu", *args])
-        return
+    """Every option of the JAX predict CLI is ported; none raises
+    NotImplementedError. --engine 2d and p3d run a 2D GenericUNet run
+    (p3d: two channels times the default 5 slices in), batching slices as
+    the 3d engine batches tiles; --pseudo3d-slices leaves the 3d engine as
+    it is. At world size 1 --sharded-tiles is the 3d engine at sw_batch 1,
+    and --engine spatial the whole-volume forward of a GenericUNet run (the
+    3d engine with the roi equal to the volume); --spatial-shards other
+    than the world size is refused."""
     if expect == "refused":
         with pytest.raises(SystemExit, match="runs on every rank, 1 here"):
             tpredict.main(["--data", str(tmp_path), "--run-dirs", str(tmp_path),
@@ -311,12 +320,16 @@ def test_unported_options_raise(data_root, runs, tmp_path, args, expect):
     if expect == "whole-volume forward":
         run = str(tmp_path / "generic_unet")
         _generic_unet_run(run)
+    if expect == "slices":
+        run = str(tmp_path / "generic_unet_2d")
+        _generic_unet_run(run, in_channels=10 if "p3d" in args else 2, ndim=2)
     base = ["--data", data_root, "--cache", os.path.join(data_root, "cache_port"),
             "--run-dirs", run, "--device", "cpu", "--target-shape", "32", "--roi", "32",
             "--save-softmax"] + (["--mirror-tta"] if expect == "sw_batch 1" else [])
     got, want = str(tmp_path / "got"), str(tmp_path / "want")
     tpredict.main(base + ["--out", got] + args)
-    tpredict.main(base + ["--out", want, "--sw-batch-size", "1"])
+    tpredict.main(base + ["--out", want, "--sw-batch-size", "1"]
+                  + (args if expect == "slices" else []))
     _same_predictions(got, want)
 
 

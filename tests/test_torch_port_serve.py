@@ -75,7 +75,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "losses.dice", "cli.predict", "cli.evaluate", "cli.ensemble",
                  "pipeline.evaluator", "pipeline.postprocess", "losses.metrics",
                  "parallel.distributed", "parallel.mesh", "parallel.spatial", "infer.sharded",
-                 "models.generic_unet"):
+                 "models.generic_unet", "infer.sliding_window_2d", "ops.windows",
+                 "models.unet3d", "models.nnformer", "models.swinunet3d"):
         assert f"micformer_tpu_torch.{name}" in lines[0], name
     assert lines[-1] == "BAD []", lines[-1]
 

@@ -4,13 +4,15 @@
 a `file://` store under tmp_path, so concurrent test workers never share a
 port); rank r runs `worker(rank, world, tmp_path, **kw)` on one torch thread
 and its return value comes back, in rank order. A rank that raises fails
-the call. The workers here import torch and the port only, never JAX: the
+the call. The ranks then meet at a barrier and leave the group one at a
+time, so the store file is gone exactly when every rank's group was freed. The workers here import torch and the port only, never JAX: the
 tests hold their results against the JAX package in their own process.
 """
 
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import torch
@@ -26,8 +28,27 @@ def _entry(rank, world, tmp_path, worker, kw):
     try:
         out = worker(rank, world, tmp_path, **kw)
         torch.save(out, os.path.join(tmp_path, f"rank{rank}.pt"))
-    finally:
-        distributed.shutdown()
+    except BaseException:
+        distributed.shutdown(wait=False)
+        raise
+    distributed.barrier()
+    _in_rank_order(tmp_path, rank, lambda: distributed.shutdown(wait=False))
+
+
+def _in_rank_order(tmp_path, rank, fn, timeout=120.0):
+    """fn() once rank - 1 has done it (a marker file a rank). The ranks
+    destroy their groups one at a time: FileStore's destructor counts its
+    users out in two steps, so destructors that run at the same moment can
+    each miss being the last, and the store file stays behind. One at a
+    time, the file goes exactly when every rank's group is gone."""
+    prev = os.path.join(tmp_path, f"left{rank - 1}")
+    t0 = time.monotonic()
+    while rank > 0 and not os.path.exists(prev):
+        if time.monotonic() - t0 > timeout:
+            raise TimeoutError(f"rank {rank - 1} did not leave the group")
+        time.sleep(0.01)
+    fn()
+    open(os.path.join(tmp_path, f"left{rank}"), "w").close()
 
 
 def run_ranks(world: int, tmp_path, worker, **kw) -> list:
@@ -37,6 +58,46 @@ def run_ranks(world: int, tmp_path, worker, **kw) -> list:
                        start_method="spawn", join=True)
     return [torch.load(os.path.join(tmp_path, f"rank{r}.pt"), weights_only=False)
             for r in range(world)]
+
+
+def run_cli_ranks(world: int, tmp_path, argv) -> list:
+    """`world` spawned ranks that each run cli/train.main(argv) as torchrun
+    starts them (env:// on a free localhost port, so main joins the group
+    itself); each returns its trainer's step count and whether its group was
+    left when main returned."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    tmp_path = str(tmp_path)
+    mp.start_processes(_cli_entry, args=(world, tmp_path, port, argv), nprocs=world,
+                       start_method="spawn", join=True)
+    return [torch.load(os.path.join(tmp_path, f"cli{r}.pt")) for r in range(world)]
+
+
+def _cli_entry(rank, world, tmp_path, port, argv):
+    import torch.distributed as dist
+
+    from micformer_tpu_torch.cli import train
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    torch.set_num_threads(1)
+    trainer = train.main(argv)
+    torch.save({"step": trainer.step, "left": not dist.is_initialized()},
+               os.path.join(tmp_path, f"cli{rank}.pt"))
+
+
+def grad_all_reduce_worker(rank, world, tmp_path):
+    """all_reduce_sum of 2·x, x = rank + 1, and d Σ / d x (2·world)."""
+    from micformer_tpu_torch.parallel.mesh import all_reduce_sum
+
+    x = torch.full((3,), float(rank + 1), requires_grad=True)
+    y = all_reduce_sum(2 * x)
+    y.sum().backward()
+    return y.detach().numpy(), x.grad.numpy()
 
 
 class Items:
