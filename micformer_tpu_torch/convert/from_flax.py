@@ -10,8 +10,8 @@ Inverts the layout rules of `micformer_tpu/convert/torch_import.py`:
     (2D likewise: permute(2, 3, 0, 1), flipped)
   - Conv3x3ViaDot taps [27, in, out]       -> Conv3d.weight[:, :, dz, dy, dx] =
                                               taps[dz*9 + dy*3 + dx].T
-  - LayerNorm, InstanceNorm scale / bias   -> weight / bias
-  - rel_pos_bias_table, PReLU alpha        -> the same name, as is
+  - LayerNorm, InstanceNorm, GroupNorm scale / bias -> weight / bias
+  - rel_pos_bias_table, PReLU alpha, pos_embed -> the same name, as is
 
 The walk follows the flax tree alongside the torch modules: a flax name is
 the torch attribute name, except flax's automatic names, which are renamed per
@@ -27,7 +27,11 @@ import torch.nn as nn
 
 from micformer_tpu_torch.models.layers import InstanceNorm
 
-# flax auto-names -> torch attribute names, per torch module class
+# the flax auto-names of two (conv k3, InstanceNorm) pairs
+_DOUBLE = {"Conv_0": "conv1", "InstanceNorm_0": "norm1", "Conv_1": "conv2",
+           "InstanceNorm_1": "norm2"}
+# flax auto-names -> torch attribute names (dotted: a submodule's), per
+# torch module class
 _RENAMES = {
     "SwinBlock3D": {"LayerNorm_0": "norm1", "LayerNorm_1": "norm2", "Mlp_0": "mlp"},
     "Mlp": {"Dense_0": "fc1", "Dense_1": "fc2"},
@@ -43,10 +47,21 @@ _RENAMES = {
                        "Conv_1": "conv2", "ChannelNorm_1": "norm2", "PReLU_1": "act2"},
     "SwinStage": {"ChannelNorm_0": "norm"},
     "SwinUnet3D": {"ChannelNorm_0": "final_norm", "PReLU_0": "final_act"},
+    "PatchMergingLinear": {"LayerNorm_0": "norm", "Dense_0": "reduction"},
+    "PatchExpandLinear": {"Dense_0": "expand", "LayerNorm_0": "norm"},
+    "FinalPatchExpand": {"Dense_0": "expand", "LayerNorm_0": "norm"},
+    "ResConvBlock": _DOUBLE,
+    "UpBlock": {"ConvTranspose_0": "up", "ResConvBlock_0": "block"},
+    "DoubleConv": _DOUBLE,
+    "EnBlock": {"GroupNorm_0": "norm1", "Conv_0": "conv1", "GroupNorm_1": "norm2",
+                "Conv_1": "conv2"},
+    "ViTBlock": {"LayerNorm_0": "norm1", "LayerNorm_1": "norm2", "Mlp_0": "mlp"},
+    # the bottleneck's double conv, unnamed at TransBTS's level in flax
+    "TransBTS": {k: f"bneck.{v}" for k, v in _DOUBLE.items()},
 }
 # leaves kept as they are, by flax name: relative-position bias tables
-# [rows, heads] and PReLU slopes
-_AS_IS = ("rel_pos_bias_table", "alpha")
+# [rows, heads], PReLU slopes and TransBTS's positional embedding [1, N, E]
+_AS_IS = ("rel_pos_bias_table", "alpha", "pos_embed")
 
 
 def _convert_leaf(mod: nn.Module, key: str, a: np.ndarray, path: str):
@@ -74,33 +89,48 @@ def _convert_leaf(mod: nn.Module, key: str, a: np.ndarray, path: str):
     raise KeyError(f"{path}: no rule for a kernel on {type(mod).__name__}")
 
 
+def _leaves(params: dict, model: nn.Module):
+    """(flax path joined by "/", torch parameter name, array in the torch
+    layout) for every leaf of the flax tree, walking `model` alongside."""
+
+    def walk(mod: nn.Module, tree: dict, prefix: str, fpath: str):
+        renames = _RENAMES.get(type(mod).__name__, {})
+        for key, val in tree.items():
+            path = f"{fpath}{key}"
+            if isinstance(val, dict):
+                name = renames.get(key, key)
+                try:
+                    child = mod.get_submodule(name)
+                except AttributeError:
+                    raise KeyError(f"flax subtree {path} has no torch module") from None
+                yield from walk(child, val, f"{prefix}{name}.", f"{path}/")
+                continue
+            name, arr = _convert_leaf(mod, key, np.asarray(val, np.float32), path)
+            yield path, f"{prefix}{name}", arr
+
+    yield from walk(model, params, "", "")
+
+
 def state_dict_from_flax(params: dict, model: nn.Module) -> dict[str, torch.Tensor]:
     """Map a flax parameter tree (nested dicts of arrays) onto `model`'s
     parameters. Returns a state_dict that `model.load_state_dict` takes."""
     out: dict[str, torch.Tensor] = {}
     want = dict(model.named_parameters())
-
-    def walk(mod: nn.Module, tree: dict, prefix: str):
-        renames = _RENAMES.get(type(mod).__name__, {})
-        for key, val in tree.items():
-            path = f"{prefix}{key}"
-            if isinstance(val, dict):
-                child = getattr(mod, renames.get(key, key), None)
-                if not isinstance(child, nn.Module):
-                    raise KeyError(f"flax subtree {path} has no torch module")
-                walk(child, val, f"{prefix}{renames.get(key, key)}.")
-                continue
-            name, arr = _convert_leaf(mod, key, np.asarray(val, np.float32), path)
-            full = f"{prefix}{name}"
-            if full not in want:
-                raise KeyError(f"flax leaf {path} -> {full}: no such torch parameter")
-            if tuple(arr.shape) != tuple(want[full].shape):
-                raise ValueError(f"flax leaf {path}: shape {arr.shape} does not fit "
-                                 f"{full} {tuple(want[full].shape)}")
-            out[full] = torch.tensor(np.ascontiguousarray(arr))
-
-    walk(model, params, "")
+    for path, full, arr in _leaves(params, model):
+        if full not in want:
+            raise KeyError(f"flax leaf {path} -> {full}: no such torch parameter")
+        if tuple(arr.shape) != tuple(want[full].shape):
+            raise ValueError(f"flax leaf {path}: shape {arr.shape} does not fit "
+                             f"{full} {tuple(want[full].shape)}")
+        # a copy: a flip over unit axes keeps negative strides that numpy
+        # still calls contiguous and torch refuses
+        out[full] = torch.tensor(arr.copy())
     missing = sorted(set(want) - set(out))
     if missing:
         raise KeyError(f"torch parameters not filled from flax: {missing}")
     return out
+
+
+def flax_names(params: dict, model: nn.Module) -> dict[str, str]:
+    """Torch parameter name -> the path of the flax leaf that fills it."""
+    return {full: path for path, full, _ in _leaves(params, model)}

@@ -5,14 +5,16 @@ port's models use. The JAX package's lane-major, via-dot, blocked and
 W-packed forms are TPU layouts of the same math; this is the plain math.
 
 The window blocks work on channels-last [B, D, H, W, C] tensors: Mlp,
-DropPath, WindowAttention3D (self and cross; relative-position bias,
-masks and the SwinUnet3D window scramble for the zoo), SwinBlock3D (shifted
-or not), PatchEmbed3D, PatchMergingConv, PatchExpandConv and
-pad_to_multiple. Their convolutions take the channels-first view.
+Dropout, DropPath, WindowAttention3D (self and cross; relative-position
+bias, masks and the SwinUnet3D window scramble for the zoo), SwinBlock3D
+(shifted or not), PatchEmbed3D, PatchMergingConv, PatchExpandConv, the Swin
+merges and expands PatchMergingLinear, PatchExpandLinear and
+FinalPatchExpand, and pad_to_multiple. Their convolutions take the
+channels-first view.
 
 The conv blocks of the zoo work on channels-first [B, C, *spatial] tensors:
-PReLU and ConvNormAct (convs padded as flax's "SAME" pads them: same_pads,
-conv_same).
+GroupNorm, DoubleConv, PReLU and ConvNormAct (convs padded as flax's "SAME"
+pads them: same_pads, conv_same).
 
 MedNeXt's blocks work on channels-first [B, C, D, H, W] tensors, the layout
 the depthwise kernel takes, in which cuDNN's strided and transposed convs,
@@ -50,9 +52,9 @@ _ROWS = contextvars.ContextVar("batch_rows", default=None)
 
 @contextlib.contextmanager
 def batch_rows(first: int, total: int):
-    """Inside, DropPath draws its masks for a global batch of `total` rows
-    and keeps the rows from `first` on: a data-parallel rank holding those
-    rows draws what a single process draws for them."""
+    """Inside, DropPath and Dropout draw their masks for a global batch of
+    `total` rows and keep the rows from `first` on: a data-parallel rank
+    holding those rows draws what a single process draws for them."""
     token = _ROWS.set((first, total))
     try:
         yield
@@ -102,15 +104,45 @@ def conv_transpose_same(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 
 class Mlp(nn.Module):
-    """Linear -> exact GELU -> Linear."""
+    """Linear -> exact GELU -> dropout -> Linear -> dropout (TransBTS sets
+    the dropout; every other model has none)."""
 
-    def __init__(self, dim: int, hidden: int, out: int):
+    def __init__(self, dim: int, hidden: int, out: int, dropout: float = 0.0):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, out)
+        self.drop = Dropout(dropout)
 
-    def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+    def forward(self, x, generator: torch.Generator | None = None):
+        x = self.drop(F.gelu(self.fc1(x)), generator)
+        return self.drop(self.fc2(x), generator)
+
+
+class Dropout(nn.Module):
+    """Element-wise dropout: identity in eval mode; in train mode each
+    element is kept with probability 1 - rate (and scaled by 1 / keep),
+    drawn from the caller's generator (for the global batch inside
+    `batch_rows`)."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, generator: torch.Generator | None = None):
+        if not self.training or self.rate == 0.0:
+            return x
+        return _keep(x, self.rate, x.shape[1:], generator)
+
+
+def _keep(x, rate, tail, generator):
+    """x with rows dropped by masks of shape [rows, *tail] drawn for the
+    global batch (`batch_rows`), the kept entries scaled by 1 / (1 - rate)."""
+    keep = 1.0 - rate
+    first, total = _ROWS.get() or (0, x.shape[0])
+    dev = generator.device if generator is not None else x.device
+    mask = torch.rand((total,) + tuple(tail), generator=generator, device=dev).to(x.device)
+    mask = mask[first:first + x.shape[0]] < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class DropPath(nn.Module):
@@ -126,20 +158,17 @@ class DropPath(nn.Module):
     def forward(self, x, generator: torch.Generator | None = None):
         if not self.training or self.rate == 0.0:
             return x
-        keep = 1.0 - self.rate
-        first, total = _ROWS.get() or (0, x.shape[0])
-        shape = (total,) + (1,) * (x.dim() - 1)
-        dev = generator.device if generator is not None else x.device
-        mask = torch.rand(shape, generator=generator, device=dev).to(x.device) < keep
-        mask = mask[first:first + x.shape[0]]
-        return torch.where(mask, x / keep, torch.zeros_like(x))
+        return _keep(x, self.rate, (1,) * (x.dim() - 1), generator)
 
 
 def add_rel_pos_table(module: nn.Module, window_size, num_heads: int) -> None:
     """Give `module` a relative-position bias table for `window_size`,
     `rel_pos_bias_table` [(2wd-1)(2wh-1)(2ww-1), heads] (the flax leaf's name
-    and shape), and its index as a buffer that no state_dict holds."""
+    and shape), and its index as a buffer that no state_dict holds.
+    `bias_heads`, the table's columns a forward gathers, is all of them but
+    under tensor parallelism (`parallel/tensor.py`: the rank's heads)."""
     wd, wh, ww = module.table_window = tuple(window_size)
+    module.bias_heads = slice(None)
     module.rel_pos_bias_table = nn.Parameter(
         torch.zeros((2 * wd - 1) * (2 * wh - 1) * (2 * ww - 1), num_heads))
     module.register_buffer("rel_pos_index", torch.from_numpy(
@@ -157,8 +186,8 @@ def rel_pos_bias(module: nn.Module, window_size) -> torch.Tensor:
                          f"is for window {module.table_window}: build the model with the "
                          "input_size it is called at")
     T = len(module.rel_pos_index)
-    return module.rel_pos_bias_table[module.rel_pos_index.reshape(-1)].reshape(
-        T, T, -1).permute(2, 0, 1)
+    table = module.rel_pos_bias_table[:, module.bias_heads]
+    return table[module.rel_pos_index.reshape(-1)].reshape(T, T, -1).permute(2, 0, 1)
 
 
 class WindowAttention3D(nn.Module):
@@ -312,6 +341,58 @@ class PatchExpandConv(nn.Module):
         return self.norm(conv_cl(self.conv, x))
 
 
+class PatchMergingLinear(nn.Module):
+    """Swin merge C -> 2C on channels-last x: pad to even extents, the 2³
+    neighbourhood concatenated as (d, h, w) channel blocks, LN(8C), a
+    bias-free Linear."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.norm = nn.LayerNorm(8 * dim, eps=LN_EPS)
+        self.reduction = nn.Linear(8 * dim, 2 * dim, bias=False)
+
+    def forward(self, x):
+        x = pad_to_multiple(x, (2, 2, 2))
+        B, D, H, W, C = x.shape
+        x = x.reshape(B, D // 2, 2, H // 2, 2, W // 2, 2, C).permute(0, 1, 3, 5, 2, 4, 6, 7)
+        return self.reduction(self.norm(x.reshape(B, D // 2, H // 2, W // 2, 8 * C)))
+
+
+class PatchExpandLinear(nn.Module):
+    """Swin expand C -> C/4 at twice the extents on channels-last x: a
+    bias-free Linear(C, 2C), its output read as (d, h, w, C/4) blocks
+    shuffled into the 2³ neighbourhood, then LN(C/4)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.expand = nn.Linear(dim, 2 * dim, bias=False)
+        self.norm = nn.LayerNorm(dim // 4, eps=LN_EPS)
+
+    def forward(self, x):
+        B, D, H, W, C = x.shape
+        x = self.expand(x).reshape(B, D, H, W, 2, 2, 2, C // 4)
+        x = x.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(B, 2 * D, 2 * H, 2 * W, C // 4)
+        return self.norm(x)
+
+
+class FinalPatchExpand(nn.Module):
+    """The last expand by `scale` per axis, keeping C: a bias-free
+    Linear(C, scale³·C) shuffled into the scale³ neighbourhood, then LN(C)."""
+
+    def __init__(self, dim: int, scale: int = 4):
+        super().__init__()
+        self.scale = scale
+        self.expand = nn.Linear(dim, scale ** 3 * dim, bias=False)
+        self.norm = nn.LayerNorm(dim, eps=LN_EPS)
+
+    def forward(self, x):
+        B, D, H, W, C = x.shape
+        s = self.scale
+        x = self.expand(x).reshape(B, D, H, W, s, s, s, C)
+        x = x.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(B, s * D, s * H, s * W, C)
+        return self.norm(x)
+
+
 class InstanceNorm(nn.Module):
     """Instance norm of [B, C, *spatial] over the spatial axes, affine
     (MedNeXt's GroupNorm with one group per channel, GenericUNet's) or not
@@ -340,6 +421,46 @@ class InstanceNorm(nn.Module):
         scale = scale * self.weight.float().view(shape)
         shift = self.bias.float().view(shape) - mean * scale
         return torch.addcmul(shift, xf, scale).to(x.dtype)
+
+
+class GroupNorm(InstanceNorm):
+    """flax's GroupNorm (affine) of [B, C, *spatial]: `num_groups`
+    contiguous channel blocks, statistics over each block and the spatial
+    axes in f32 as E[x²] − E[x]² clamped at 0, as flax computes them.
+    TransBTS's encoder takes min(8, C) groups."""
+
+    def __init__(self, num_groups: int, num_features: int, eps: float = 1e-5):
+        super().__init__(num_features, eps)
+        self.num_groups = num_groups
+
+    def forward(self, x):
+        B = x.shape[0]
+        xf = x.float().reshape(B, self.num_groups, -1)
+        n = xf.shape[-1]
+        mean = xf.sum(-1, keepdim=True) / n
+        var = (xf.square().sum(-1, keepdim=True) / n - mean.square()).clamp_min(0.0)
+        y = ((xf - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        return (y * self.weight.float().view(shape) + self.bias.float().view(shape)).to(x.dtype)
+
+
+class DoubleConv(nn.Module):
+    """2 x (conv k3 pad 1, affine InstanceNorm, ReLU) on [B, C, D, H, W]:
+    TransUNet's level block; with `residual`, plus the input (TransBTS's
+    decoder block)."""
+
+    def __init__(self, in_ch: int, features: int, residual: bool = False):
+        super().__init__()
+        self.residual = residual
+        self.conv1 = nn.Conv3d(in_ch, features, 3, padding=1)
+        self.norm1 = InstanceNorm(features)
+        self.conv2 = nn.Conv3d(features, features, 3, padding=1)
+        self.norm2 = InstanceNorm(features)
+
+    def forward(self, x):
+        h = F.relu(self.norm1(self.conv1(x)))
+        h = F.relu(self.norm2(self.conv2(h)))
+        return h + x if self.residual else h
 
 
 class PReLU(nn.Module):

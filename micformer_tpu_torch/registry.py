@@ -42,12 +42,16 @@ def register(name: str, **defaults):
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Re-draw every parameter: kernels from a truncated normal of variance
-    1/fan_in, biases zero, norm weights one, relative-position bias tables
-    from a normal of std 0.02 truncated at two std (flax's truncated_normal),
-    PReLU slopes 0.25."""
+    1/fan_in, biases zero, norm weights one (GroupNorm is an InstanceNorm),
+    relative-position bias tables from a normal of std 0.02 truncated at two
+    std (flax's truncated_normal), positional embeddings from a normal of
+    std 0.02 (flax's normal, not truncated), PReLU slopes 0.25."""
     from micformer_tpu_torch.models.layers import InstanceNorm, PReLU
 
     for mod in model.modules():
+        if isinstance(getattr(mod, "pos_embed", None), nn.Parameter):
+            with torch.no_grad():
+                nn.init.normal_(mod.pos_embed, 0.0, 0.02, generator=generator)
         if getattr(mod, "rel_pos_bias_table", None) is not None:
             with torch.no_grad():
                 nn.init.trunc_normal_(mod.rel_pos_bias_table, 0.0, 0.02, -0.04, 0.04,

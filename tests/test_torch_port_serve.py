@@ -76,7 +76,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "pipeline.evaluator", "pipeline.postprocess", "losses.metrics",
                  "parallel.distributed", "parallel.mesh", "parallel.spatial", "infer.sharded",
                  "models.generic_unet", "infer.sliding_window_2d", "ops.windows",
-                 "models.unet3d", "models.nnformer", "models.swinunet3d"):
+                 "models.unet3d", "models.nnformer", "models.swinunet3d", "models.vtunet",
+                 "models.swinunetr", "models.transbts", "models.transunet", "ops.pe",
+                 "parallel.tensor"):
         assert f"micformer_tpu_torch.{name}" in lines[0], name
     assert lines[-1] == "BAD []", lines[-1]
 

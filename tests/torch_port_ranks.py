@@ -343,3 +343,23 @@ def spatial_worker(rank, world, tmp_path, states):
     except ValueError as e:
         out["misaligned"] = str(e)
     return out
+
+
+# ---- tensor parallelism --------------------------------------------------------
+
+def tensor_parallel_worker(rank, world, tmp_path, cases):
+    """Each case of `cases` (key -> (registry name, kwargs, state_dict, x)):
+    the model with those weights, sharded for this rank, through
+    tensor_parallel_apply; its output, and the parameters this rank holds
+    against the whole model's."""
+    from micformer_tpu_torch.parallel.tensor import shard_tensor_parallel, tensor_parallel_apply
+
+    out = {}
+    for key, (name, kwargs, state, x) in cases.items():
+        model = make_model(name, kwargs, state)
+        shard = shard_tensor_parallel(model, rank, world)
+        with torch.no_grad():
+            y = tensor_parallel_apply(shard, torch.from_numpy(x))
+        out[key] = (y.numpy(), sum(p.numel() for p in shard.parameters()),
+                    sum(p.numel() for p in model.parameters()))
+    return out
