@@ -6,7 +6,8 @@
 Phases; any error in any of them fails the run (non-zero exit, no result line):
   1. device  - CUDA must be available; prints nvidia-smi's name and power limit.
   2. build   - nvcc builds every kernel source of the serving and training
-               paths from csrc/, one nvcc per source, all started together;
+               paths from csrc/, one nvcc per source, all started together,
+               and g++ the native host library (native/) beside them;
                then, per kernel function, cuobjdump's SASS of its main loop
                (the backward branch that holds the most FFMAs): instructions
                and FFMAs, and the function's FFMAs and HMMAs (tensor-core mmas).
@@ -156,7 +157,32 @@ Phases; any error in any of them fails the run (non-zero exit, no result line):
                forward (route ffma in f32, mma in bf16), the all-reduces' count
                and ms, the forward's ms, peak memory and the share of parameters a
                rank, and the modules the plan keeps whole.
- 12. lines   - a {"kernels": [...]} line, then the {"ok": true, ...} line last.
+ 12. export  - serving artifacts (torch.export, K1, K2 and K3 as custom-op
+               nodes): cli/export from phase 6's MicFormer, fused and MedNeXt-S
+               runs at the bench protocol (bf16, 160³, roi 128, overlap 0.5,
+               gaussian, sw_batch 4, argmax) and an f32 --logits MicFormer
+               artifact at 128³, one cli/export process each, all started
+               together; each artifact is checked as soon as its process ends,
+               while the others still export. An argmax artifact is loaded
+               from disk and served by cli/serve --exported (one cold request,
+               then three [2, 160³]): the loaded graph's op nodes (192
+               window_attention and no softmax node; 192
+               fused_window_attention; 36 dw_conv3), each request's launches
+               and routes (K1 or K2 mma; K3 tma and volume); then serve
+               --run-dir's composition (build_model, build_inference_fn) of
+               the same run on the same requests, in-process while the exports
+               run, each request timed as serve times it: at least EXPORT_AGREE of the voxels
+               agree (the count that differ printed). Printed: the cli/export
+               process's seconds, artifact MB, load seconds, cold and p50
+               request and peak memory, beside the live composition's and
+               phase 5's live p50. The logits artifact (one tile, 96 K1 on
+               ffma; TF32 off) is within EXPORT_LOGITS_REL of max |logit| of
+               the live pipeline. Then cli/plan and verify_dataset_integrity
+               over phase 7's root, and the native reader and resizers against
+               the Python ones where the native library built (phase 2 builds
+               it; its compiler message when it fails, which fails nothing: it
+               is host code off the device).
+ 13. lines   - a {"kernels": [...]} line, then the {"ok": true, ...} line last.
 """
 
 from __future__ import annotations
@@ -172,6 +198,7 @@ import re
 import shutil
 import statistics
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -378,15 +405,20 @@ def phase_device():
 
 
 def phase_build():
+    from micformer_tpu_torch import native
     from micformer_tpu_torch.kernels import _build
 
     sources = sorted({os.path.basename(k["source"])[:-3] for k in KERNELS.values()})
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
+        # the native host library (g++) beside the kernels: its failure
+        # fails nothing, the Python reader reads instead
+        host = pool.submit(native.available)
         results = dict(zip(sources, pool.map(_build.build, sources)))
     for name, r in results.items():
         log(f"build: {name} {r['seconds']:.2f} s\n{r['log'].strip()}")
-    log(f"build: all kernels in {time.perf_counter() - t0:.2f} s")
+    log(f"build: all kernels in {time.perf_counter() - t0:.2f} s; the native host library "
+        + ("built" if host.result() else f"not built: {native.BUILD_ERROR}"))
     sass_report([_build._target(name)[1] for name in sources])
 
 
@@ -2473,6 +2505,278 @@ def phase_tensor(work):
     return res
 
 
+# phase 12: the serving artifacts. Launches a request at 160³, roi 128,
+# sw_batch 4 (8 tiles, 2 forwards): K1's 192 (or K2's, fused) and K3's 36;
+# the graph holds one op node a launch
+EXPORT_SIZE = 160
+EXPORT_ARTIFACTS = {
+    "micformer": ("run", [], expect(window_attention=192)),
+    "fused": ("run_fused", ["--fused-attention"], expect(fused_window_attention=192)),
+    "mednext": ("run_mednext", [], expect(dw_conv3=36)),
+}
+# argmax agreement of artifact and live serving, and the f32 logits bar
+EXPORT_AGREE = 0.9999
+EXPORT_LOGITS_REL = 1e-5
+
+
+def _wait(proc, t0):
+    """(return code, seconds from start to exit) of a cli/export process."""
+    proc.wait(timeout=900)
+    return proc.returncode, time.perf_counter() - t0
+
+
+def phase_export(work, live5):
+    """cli/export from phase 6's runs at the bench protocol (bf16, 160³, roi
+    128, overlap 0.5, gaussian, sw_batch 4, argmax) and an f32 --logits
+    MicFormer artifact at 128³ (one tile), the four export processes started
+    together; each artifact is checked as soon as its export ends, while
+    the others still export: an argmax one served from disk by cli/serve
+    --exported (one cold request, then three [2, 160³]) and held against
+    serve's live composition of the same run on the same requests
+    (`build_inference_fn`, in-process, each request timed as serve times
+    it, run while the exports run), the logits one (TF32 off) against the live pipeline; then the
+    host-side tools over phase 7's root (cli/plan, verify_dataset_integrity,
+    the native reader and resizers). live5: phase 5's serve results."""
+    from micformer_tpu_torch.cli import serve
+    from micformer_tpu_torch.cli.serve import build_model
+    from micformer_tpu_torch.convert.aot_export import build_inference_fn, load_artifact, op_nodes
+    from micformer_tpu_torch.data.nifti import read_nifti
+    from micformer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from micformer_tpu_torch.kernels.window_attention import ROUTES as ATTN_ROUTES
+
+    t_phase = time.perf_counter()
+    size, roi = EXPORT_SIZE, 128
+    proto = ["--target-shape", str(size), "--roi", str(roi), "--overlap", "0.5",
+             "--sw-batch-size", "4"]
+    jobs = {key: ["--run-dir", os.path.join(work, run), "--out",
+                  os.path.join(work, f"art_{key}"), "--bf16", *proto, *extra]
+            for key, (run, extra, _) in EXPORT_ARTIFACTS.items()}
+    jobs["logits"] = ["--run-dir", os.path.join(work, "run"), "--out",
+                      os.path.join(work, "art_logits"), "--logits", "--target-shape",
+                      str(roi), "--roi", str(roi), "--sw-batch-size", "4"]
+    procs, started = {}, {}
+    for key, argv in jobs.items():
+        with open(os.path.join(work, f"export_{key}.log"), "w") as f:
+            started[key] = time.perf_counter()
+            procs[key] = subprocess.Popen(
+                [sys.executable, "-m", "micformer_tpu_torch.cli.export", *argv], cwd=ROOT,
+                stdout=f, stderr=subprocess.STDOUT)
+
+    watch = os.path.join(work, "export_in")
+    os.makedirs(watch)
+    rng = np.random.default_rng(12)
+    names = [f"q{i}" for i in range(4)]       # q0 is the cold request
+    for n in names:
+        np.save(os.path.join(watch, f"{n}.npy"),
+                rng.normal(size=(2, size, size, size)).astype(np.float32))
+        os.utime(os.path.join(watch, f"{n}.npy"), (time.time() - 5,) * 2)
+    res = {"launches": expect()}
+
+    def live_composition(key):
+        """serve --run-dir's composition (build_model, build_inference_fn)
+        of the run on the four requests, each timed as serve times it:
+        (latencies, launches of each, peak memory, segmentations)."""
+        run, extra, _ = EXPORT_ARTIFACTS[key]
+        torch.cuda.reset_peak_memory_stats()
+        _, model = build_model(run_dir=os.path.join(work, run), bf16=True,
+                               fused_attention="--fused-attention" in extra, device="cuda")
+        live = build_inference_fn(model, roi=(roi,) * 3, overlap=0.5, sw_batch_size=4)
+        lat, per, segs = [], [], []
+        for n in names:
+            img = np.load(os.path.join(watch, f"{n}.npy"))
+            before = dict(LAUNCHES)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                segs.append(live(torch.from_numpy(img[None]).to("cuda"))[0].cpu().numpy())
+            lat.append(time.perf_counter() - t0)
+            per.append({k: LAUNCHES[k] - before[k] for k in LAUNCHES})
+        peak = torch.cuda.max_memory_allocated()
+        del model, live
+        torch.cuda.empty_cache()
+        return lat, per, peak, segs
+
+    def argmax_artifact(key, export_s, live):
+        """serve --exported on the four requests, held against `live`, the
+        live composition's results on them."""
+        run, extra, want = EXPORT_ARTIFACTS[key]
+        art, out = os.path.join(work, f"art_{key}"), os.path.join(work, f"art_{key}_out")
+        with open(os.path.join(art, "meta.json")) as f:
+            meta = json.load(f)
+        mb = os.path.getsize(os.path.join(art, "module.pt2")) / 1e6
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        reset_all_routes()
+        report = {}
+        lat = serve.main(["--exported", art, "--out", out, "--watch", watch, "--max-requests",
+                          str(len(names)), "--poll", "0.05", "--idle-exit", "300"],
+                         report=report)
+        launches, routes = dict(LAUNCHES), all_routes()
+        peak = torch.cuda.max_memory_allocated()
+        per, segs = [], []
+        for n in names:
+            with open(os.path.join(out, f"{n}.done")) as f:
+                per.append(json.load(f)["launches"])
+            segs.append(read_nifti(os.path.join(out, f"{n}_seg.nii.gz")))
+        shutil.rmtree(art)
+        live_lat, live_per, live_peak, live_segs = live
+        differ = int(sum(np.count_nonzero(a != b) for a, b in zip(segs, live_segs)))
+        total = len(names) * size ** 3
+        want_nodes = dict({k: want[k] for k in report["op_nodes"] if k in want}, softmax=0)
+        want_routes = {k: [] for k in KERNELS}
+        for k, n in want.items():
+            if n:
+                want_routes[k] = PATH_ROUTES if k == "dw_conv3" else ATTN_PATH_ROUTES
+        row = {"export_s": export_s, "artifact_mb": mb, "load_s": report["load_s"],
+               "cold_s": lat[0], "p50_s": statistics.median(lat[1:]), "latency_s": lat,
+               "max_memory_allocated": peak, "live_cold_s": live_lat[0],
+               "live_p50_s": statistics.median(live_lat[1:]), "live_latency_s": live_lat,
+               "live_max_memory_allocated": live_peak, "op_nodes": report["op_nodes"],
+               "launches_per_request": per, "routes": routes, "voxels_differ": differ,
+               "voxels": total, "agree": 1 - differ / total, "platforms": meta["platforms"]}
+        phase5 = live5.get(key)
+        log(f"export {key}: cli/export {export_s:.2f} s, {mb:.1f} MB; serve --exported: load "
+            f"{row['load_s']:.2f} s, op nodes {row['op_nodes']}, cold {lat[0]:.4f} s, p50 "
+            f"{row['p50_s']:.4f} s, latencies {lat}, peak {peak / 2 ** 30:.2f} GiB, launches "
+            f"per request {per}, routes {routes}; serve's live composition of the run on "
+            f"the same requests (while the exports ran): cold {live_lat[0]:.4f} s, p50 {row['live_p50_s']:.4f} s, "
+            f"latencies {live_lat}, peak {live_peak / 2 ** 30:.2f} GiB"
+            + (f" (phase 5's live serve of the same model, random weights: p50 "
+               f"{phase5['p50_s']:.4f} s)" if phase5 else "")
+            + f"; voxels that differ {differ} of {total} (agree {row['agree']:.6f}); at "
+            f"{time.perf_counter() - t_phase:.2f} s of the phase")
+        if (row["op_nodes"] != want_nodes or per != [want] * len(names)
+                or launches != {k: len(names) * n for k, n in want.items()}
+                or live_per != [want] * len(names) or routes != want_routes
+                or row["agree"] < EXPORT_AGREE or meta["platforms"] != ["cuda"]):
+            raise AssertionError(f"export {key}: op nodes {row['op_nodes']} (want "
+                                 f"{want_nodes}), launches per request {per} and live "
+                                 f"{live_per} (want {want}), routes {routes} (want "
+                                 f"{want_routes}), agree {row['agree']} (want >= "
+                                 f"{EXPORT_AGREE}), platforms {meta['platforms']}")
+        for k in KERNELS:
+            res["launches"][k] += launches[k]
+        return row
+
+    def logits_artifact(export_s):
+        """The f32 logits artifact at 128³, TF32 off, against the live
+        pipeline on q1's first 128³."""
+        tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        art = os.path.join(work, "art_logits")
+        t0 = time.perf_counter()
+        fn, _ = load_artifact(art)
+        load_s = time.perf_counter() - t0
+        nodes = op_nodes(fn)
+        x = torch.from_numpy(np.load(os.path.join(watch, "q1.npy"))[None, :, :roi, :roi, :roi]
+                             .copy()).cuda()
+        reset_launches()
+        reset_all_routes()
+        with torch.no_grad():
+            got = fn(x)
+            torch.cuda.synchronize()
+            launches, k1_routes = dict(LAUNCHES), dict(ATTN_ROUTES["window_attention"])
+            _, model = build_model(run_dir=os.path.join(work, "run"), device="cuda")
+            ref = build_inference_fn(model, roi=(roi,) * 3, sw_batch_size=4, argmax=False)(x)
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        row = {"export_s": export_s, "load_s": load_s, "op_nodes": nodes, "max_abs_err": err,
+               "max_abs_logit": scale, "launches": launches, "routes": k1_routes}
+        log(f"export logits f32: cli/export {export_s:.2f} s, load {load_s:.2f} s, op nodes "
+            f"{nodes}; max |artifact - live| {err:.3e} of max |logit| {scale:.3e} (bar "
+            f"{EXPORT_LOGITS_REL:g} of it); launches {launches}, K1 routes {k1_routes}; at "
+            f"{time.perf_counter() - t_phase:.2f} s of the phase")
+        del fn, model, got, ref
+        shutil.rmtree(art)
+        torch.cuda.empty_cache()
+        if (not err <= EXPORT_LOGITS_REL * scale or launches != expect(window_attention=96)
+                or k1_routes["ffma"] != 96
+                or nodes != {k: n for k, n in expect(window_attention=96).items()
+                             if k in nodes} | {"softmax": 0}):
+            raise AssertionError(f"export logits: max |d| {err} of {scale}, launches "
+                                 f"{launches}, routes {k1_routes}, op nodes {nodes}")
+        res["launches"]["window_attention"] += launches["window_attention"]
+        return row
+
+    pool = concurrent.futures.ThreadPoolExecutor(len(procs))
+    try:
+        waits = {pool.submit(_wait, procs[k], started[k]): k for k in procs}
+        # the live references, while the exports run (each takes longer)
+        lives = {key: live_composition(key) for key in EXPORT_ARTIFACTS}
+        log(f"export: the live compositions of {list(lives)} done at "
+            f"{time.perf_counter() - t_phase:.2f} s of the phase")
+        for fut in concurrent.futures.as_completed(waits):
+            key = waits[fut]
+            rc, export_s = fut.result()
+            with open(os.path.join(work, f"export_{key}.log")) as f:
+                said = f.read()
+            log(f"export {key}: rc {rc} after {export_s:.2f} s\n{said.strip()[-4000:]}")
+            if rc != 0:
+                raise AssertionError(f"export {key}: cli/export failed (rc {rc})")
+            res[key] = logits_artifact(export_s) if key == "logits" else \
+                argmax_artifact(key, export_s, lives[key])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        pool.shutdown()
+
+    res["host"] = phase_host_tools(work)
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"export phase: {res['wall_s']:.2f} s")
+    return res
+
+
+def phase_host_tools(work):
+    """cli/plan and verify_dataset_integrity over phase 7's root; whether
+    the native library built (its compiler message when not), and where it
+    did, its reader and resizers against the Python ones: reader within
+    1e-6, trilinear within 1e-3, nearest exactly."""
+    from micformer_tpu_torch import native
+    from micformer_tpu_torch.cli import plan
+    from micformer_tpu_torch.data import image_utils as iu
+    from micformer_tpu_torch.data.nifti import read_nifti
+    from micformer_tpu_torch.pipeline.sanity_checks import verify_dataset_integrity
+
+    data, out = os.path.join(work, "mmwhs_predict"), os.path.join(work, "plans")
+    t0 = time.perf_counter()
+    plan.main(["--data", data, "--out", out])
+    with open(os.path.join(out, "plan_3d.json")) as f:
+        plan3d = json.load(f)
+    report = verify_dataset_integrity(data)
+    res = {"plan_s": time.perf_counter() - t0, "patch_size": plan3d["patch_size"],
+           "integrity": report, "native_built": native.available(),
+           "native_error": native.BUILD_ERROR}
+    log(f"host: cli/plan and verify_dataset_integrity {res['plan_s']:.2f} s, 3D patch "
+        f"{plan3d['patch_size']}, pools {plan3d['pool_op_kernel_sizes']}; integrity "
+        f"{len(report['cases'])} cases, errors {report['errors']}, warnings "
+        f"{report['warnings']}; native library built: {res['native_built']}"
+        + (f" ({native.BUILD_ERROR})" if native.BUILD_ERROR else ""))
+    if report["errors"] or not report["cases"] or len(plan3d["patch_size"]) != 3:
+        raise AssertionError(f"host tools: integrity {report}, plan {plan3d}")
+    if not res["native_built"]:
+        return res
+    path = sorted(glob.glob(os.path.join(data, "ct_*_image.nii.gz")))[0]
+    py = read_nifti(path, with_header=True)[0].astype(np.float32)
+    t0 = time.perf_counter()
+    nat = native.read_nifti_f32(path)
+    read_s = time.perf_counter() - t0
+    vol = np.random.default_rng(4).normal(size=(30, 40, 25)).astype(np.float32)
+    errs = {"read": float(np.abs(nat - py).max()),
+            "trilinear": max(float(np.abs(native.resize_trilinear_f32(vol, s)
+                                          - iu._resize_trilinear_py(vol, s)).max())
+                             for s in ((64, 64, 64), (16, 16, 16))),
+            "nearest": max(float(np.abs(native.resize_nearest_f32(vol, s)
+                                        - iu.resize_nearest(vol, s)).max())
+                           for s in ((48, 48, 48), (16, 16, 16)))}
+    res.update(native_errors=errs, native_read_s=read_s)
+    log(f"host: native against Python: max |d| {errs}, native read {read_s:.4f} s")
+    if not (errs["read"] <= 1e-6 and errs["trilinear"] <= 1e-3 and errs["nearest"] == 0):
+        raise AssertionError(f"host: native against Python: {errs}")
+    return res
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -2516,6 +2820,7 @@ def main():
         phase_parallel(work, predicted["direct"])
         phase_zoo(work)
         phase_tensor(work)
+        exported = phase_export(work, serve)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2525,7 +2830,8 @@ def main():
     # training's [4096, 8, 3, 16]; K3 on MedNeXt-S's [4, 32, 128³], the wgrad
     # kernel on its training [2, 32, 128³]. Launches are each path's: K1 and
     # K3 from the serve phase's three volumes, the backwards and K2 from the
-    # train phase's runs that use them, wgrad from the three MedNeXt runs
+    # train phase's runs that use them, wgrad from the three MedNeXt runs;
+    # K1, K2 and K3 add the export phase's (its artifacts' requests)
     def stage0(rows, shape):
         return next(r for r in rows if r["shape"] == list(shape)
                     and r.get("layout", "self") == "self" and r["dtype"] == "bfloat16")
@@ -2544,7 +2850,8 @@ def main():
              ("dw_conv3_wgrad", stage0(wgrad, DW_TRAIN_SHAPES[0][0]), wgrad,
               {"dw_conv3_wgrad": sum(r["launches"]["dw_conv3_wgrad"] for n, r in train.items()
                                      if n.startswith("mednext"))})]
-    kernels = [{"name": name, **KERNELS[name], "launches": launches[name],
+    kernels = [{"name": name, **KERNELS[name],
+                "launches": launches[name] + exported["launches"][name],
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 **{k: row[k] for k in timed + ("layout", "k", "route") if k in row}}
                for name, row, rows, launches in lines]

@@ -180,10 +180,12 @@ def main(argv=None):
     """Predict every case of the split; returns one record a case: its
     patient id, seconds (case loaded to files written), infer_seconds (to
     the label map on the host) and kernel launches."""
+    from micformer_tpu_torch import native
     from micformer_tpu_torch import registry
     from micformer_tpu_torch.parallel import distributed
 
     args = build_parser().parse_args(argv)
+    native.available()      # the volume reader: built now, not in the first case
     # a group that main joins (torchrun's ranks) it leaves when it ends
     with distributed.joined(registry.resolve_device(args.device)) as device:
         return _predict(args, device)

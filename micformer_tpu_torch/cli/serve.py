@@ -23,10 +23,17 @@ from the registry. --model-kwargs (JSON) goes over either's arguments. A
 model that returns a list (deep supervision) serves its first,
 full-resolution output. PyTorch runs eagerly, so there is no executable to
 warm: the first request builds the kernel libraries if no earlier call did.
-Serving an exported artifact (--exported) is not ported yet.
+
+--exported serves an artifact of cli/export (`convert/aot_export.py`): the
+whole pipeline, tiling to argmax, as one `torch.export` program whose kernels
+are custom ops. It takes an argmax artifact only, its volume shape from the
+artifact's meta.json, and runs on the artifact's device (a --device that
+differs is refused); the model zoo and the checkpoint are not read.
 
     python -m micformer_tpu_torch.cli.serve --run-dir runs/mednext \
         --watch in/ --out out/ --bf16 --target-shape 160 --max-requests 3
+    python -m micformer_tpu_torch.cli.serve --exported runs/mednext/exported \
+        --watch in/ --out out/ --max-requests 3
 """
 
 from __future__ import annotations
@@ -86,14 +93,43 @@ def _load_request(path: str, target_shape, normalisation: str):
     return os.path.basename(path)[: -len("_image.nii.gz")], img
 
 
-def main(argv=None):
+def build_model(*, run_dir=None, weights=None, model=None, model_kwargs="{}",
+                num_classes=8, ckpt_tag="best_dice", fused_attention=False, bf16=False,
+                device="cuda"):
+    """(model name, model with its weights) of a training run (`config.json`
+    and `ckpt_<ckpt_tag>.pt`, the model rebuilt by `config.run_model`) or of
+    a state_dict file (`weights`, the family `model`, default micformer);
+    `model_kwargs` (JSON) goes over either's arguments. The rule of serve and
+    export."""
     from micformer_tpu_torch import registry
     from micformer_tpu_torch.config import run_model
+    from micformer_tpu_torch.train.checkpoint import CheckpointManager
+
+    if run_dir:
+        model_name, kwargs = run_model(run_dir, model, num_classes)
+        state = CheckpointManager(run_dir).restore_params_only(ckpt_tag)
+    else:
+        model_name, kwargs = model or "micformer", {"num_classes": num_classes}
+        state = torch.load(weights, map_location="cpu", weights_only=True)
+    kwargs.update(json.loads(model_kwargs))
+    if fused_attention:
+        kwargs["fused_attention"] = True
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    net = registry.build(model_name, dtype=dtype, device=device, **kwargs)
+    net.load_state_dict(state)
+    return model_name, net
+
+
+def main(argv=None, report=None):
+    """Serve until --max-requests or --idle-exit; returns each request's
+    latency in seconds. `report`, a dict, gets serve's start-up facts:
+    the model's name, and for --exported the artifact's load seconds and
+    its graph's op nodes (`aot_export.op_nodes`)."""
+    from micformer_tpu_torch import native
+    from micformer_tpu_torch.convert.aot_export import build_inference_fn, load_artifact, op_nodes
     from micformer_tpu_torch.data.image_utils import NORMALIZERS
     from micformer_tpu_torch.data.nifti import write_nifti
-    from micformer_tpu_torch.infer import sliding_window_inference
     from micformer_tpu_torch.kernels import LAUNCHES
-    from micformer_tpu_torch.train.checkpoint import CheckpointManager
 
     p = argparse.ArgumentParser("micformer_tpu_torch.serve")
     src = p.add_mutually_exclusive_group(required=True)
@@ -101,7 +137,8 @@ def main(argv=None):
                      help="training run dir (config.json and checkpoints)")
     src.add_argument("--weights", default=None, help="state_dict .pt file")
     src.add_argument("--exported", default=None,
-                     help="an exported artifact dir (not ported yet)")
+                     help="an artifact dir of cli/export (argmax), served instead "
+                          "of a model: no model zoo, no checkpoint")
     p.add_argument("--ckpt-tag", default="best_dice",
                    choices=["best_dice", "best_loss", "latest"])
     p.add_argument("--model", default=None,
@@ -109,7 +146,8 @@ def main(argv=None):
     p.add_argument("--model-kwargs", default="{}",
                    help="JSON object of model constructor arguments")
     p.add_argument("--num_classes", type=int, default=8)
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu; --exported: must be the artifact's")
     p.add_argument("--watch", required=True, help="request drop directory")
     p.add_argument("--out", required=True, help="result directory")
     p.add_argument("--target-shape", type=int, default=128,
@@ -133,39 +171,47 @@ def main(argv=None):
                    help="exit after this many idle seconds (default: run "
                         "forever)")
     args = p.parse_args(argv)
-    if args.exported:
-        raise NotImplementedError("serve --exported is not ported yet: ROADMAP queue 1, "
-                                  "item 5 (cli/export.py, convert/aot_export.py)")
     os.makedirs(args.out, exist_ok=True)
     ts = (args.target_shape,) * 3
+    report = {} if report is None else report
+    # NIfTI-pair requests are read and resized by the native library: build
+    # it now, not inside the first request
+    native.available()
 
-    if args.run_dir:
-        model_name, kwargs = run_model(args.run_dir, args.model, args.num_classes)
-        state = CheckpointManager(args.run_dir).restore_params_only(args.ckpt_tag)
+    if args.exported:
+        # the artifact is the whole pipeline (tiling, model, blending,
+        # argmax); its meta pins the serving shapes and the device
+        t0 = time.perf_counter()
+        infer, meta = load_artifact(args.exported)
+        load_s = time.perf_counter() - t0
+        if meta["output"] != "argmax_uint8":
+            raise SystemExit("serve needs an argmax artifact (re-export without --logits)")
+        dev = torch.device(args.device)
+        if dev.type not in meta["platforms"]:
+            raise SystemExit(f"serve: the artifact runs on {meta['platforms']}, "
+                             f"not on --device {args.device}")
+        ts = tuple(meta["input_shape"][2:])
+        model_name = meta.get("model", "exported")
+        report.update(load_s=load_s, op_nodes=op_nodes(infer))
+        print(f"serve: exported {model_name} on {dev} (shape {ts}, roi {meta['roi']}, "
+              f"sw_batch {meta['sw_batch_size']}), loaded in {load_s:.2f} s, op nodes "
+              f"{json.dumps(report['op_nodes'])}; watching {args.watch}", flush=True)
     else:
-        model_name, kwargs = args.model or "micformer", {"num_classes": args.num_classes}
-        state = torch.load(args.weights, map_location="cpu", weights_only=True)
-    kwargs.update(json.loads(args.model_kwargs))
-    if args.fused_attention:
-        kwargs["fused_attention"] = True
-    dtype = torch.bfloat16 if args.bf16 else torch.float32
-    model = registry.build(model_name, dtype=dtype, device=args.device, **kwargs)
-    model.load_state_dict(state)
-    dev = next(model.parameters()).device
-
-    def predictor(win):
-        out = model(win)
-        return out[0] if isinstance(out, (list, tuple)) else out
-
-    def infer(volume):
-        logits = sliding_window_inference(
-            volume, (args.roi,) * 3, predictor, num_classes=args.num_classes,
-            overlap=args.overlap, sw_batch_size=args.sw_batch_size,
-            step_mode=args.step_mode, mirror_tta=args.mirror_tta)
-        return logits.argmax(dim=1).to(torch.uint8)
-
-    print(f"serve: {model_name} on {dev} (roi {args.roi}, sw_batch "
-          f"{args.sw_batch_size}, {dtype}); watching {args.watch}", flush=True)
+        model_name, model = build_model(
+            run_dir=args.run_dir, weights=args.weights, model=args.model,
+            model_kwargs=args.model_kwargs, num_classes=args.num_classes,
+            ckpt_tag=args.ckpt_tag, fused_attention=args.fused_attention, bf16=args.bf16,
+            device=args.device)
+        dev = next(model.parameters()).device
+        # the composition an artifact exports: tiling, model, blending, argmax
+        infer = build_inference_fn(
+            model, roi=(args.roi,) * 3, num_classes=args.num_classes, overlap=args.overlap,
+            sw_batch_size=args.sw_batch_size, step_mode=args.step_mode,
+            mirror_tta=args.mirror_tta)
+        print(f"serve: {model_name} on {dev} (roi {args.roi}, sw_batch "
+              f"{args.sw_batch_size}, {next(model.parameters()).dtype}); "
+              f"watching {args.watch}", flush=True)
+    report["model"] = model_name
 
     # producer thread: watch + load (host-bound); main thread: device compute
     # and export. Queue depth 2 keeps one request loading while one computes.
@@ -211,7 +257,8 @@ def main(argv=None):
                 continue
             before = dict(LAUNCHES)
             t1 = time.perf_counter()
-            seg = infer(torch.from_numpy(img[None]).to(dev))
+            with torch.no_grad():
+                seg = infer(torch.from_numpy(img[None]).to(dev))
             seg_np = seg[0].cpu().numpy()
             latency = time.perf_counter() - t1
             write_nifti(os.path.join(args.out, f"{name}_seg.nii.gz"), seg_np)

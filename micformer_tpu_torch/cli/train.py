@@ -58,12 +58,14 @@ import torch
 
 
 def main(argv=None):
+    from micformer_tpu_torch import native
     from micformer_tpu_torch import registry
     from micformer_tpu_torch.config import build_argparser, config_from_args
     from micformer_tpu_torch.parallel import distributed
     from micformer_tpu_torch.parallel.mesh import parse_mesh
 
     args = build_argparser().parse_args(argv)
+    native.available()      # the volume reader: built now, not in a data worker
     cfg = config_from_args(args)
     if cfg.train.mesh:
         data = parse_mesh(cfg.train.mesh).get("data")

@@ -1,13 +1,15 @@
-"""Host-side (numpy) image utilities that MM-WHS preprocessing uses.
+"""Host-side (numpy) image utilities of the data pipeline.
 
-The port's own copy of the preprocessing subset of
-`micformer_tpu/data/image_utils.py`: the min-max, percentile-clip and
-z-score normalisations, the MM-WHS
-one-hot encoding, and the trilinear and nearest resizes with the semantics of
-`F.interpolate` (align_corners=False half-pixel sampling, floor nearest) in
-numpy, the separable path `_resize_trilinear_py` of the JAX package (not its
-native library). Also the train-time pad-or-crop jitter and the nonzero
-bounding box of the dataset's sample dict.
+The port's own copy of `micformer_tpu/data/image_utils.py`: the min-max,
+percentile-clip and z-score normalisations, the MM-WHS one-hot encoding and
+its inverse, and the trilinear and nearest resizes with the semantics of
+`F.interpolate` (align_corners=False half-pixel sampling, floor nearest).
+The trilinear resize of a volume whose shape changes runs in the native
+library (`micformer_tpu_torch.native`) when it is built, else in numpy, one
+separable pass per axis, as the JAX package's does. Also the train-time
+pad-or-crop jitter, the nonzero bounding box of the dataset's sample dict,
+and the reference's batch helpers (padding a batch to a common shape, the
+background crop, the random crop, the padding collate).
 """
 
 from __future__ import annotations
@@ -68,6 +70,13 @@ def label_to_one_hot(label: np.ndarray, label_values=MMWHS_LABEL_VALUES) -> np.n
     return np.stack(chans, axis=0)
 
 
+def one_hot_to_label(one_hot: np.ndarray, label_values=MMWHS_LABEL_VALUES) -> np.ndarray:
+    """Inverse: the argmax channel as the MM-WHS label value (0 for the
+    background)."""
+    lut = np.array([0] + list(label_values))
+    return lut[np.argmax(one_hot, axis=0)]
+
+
 def _linear_weights(out_size: int, in_size: int):
     """Half-pixel (align_corners=False) source coords: lo index + frac weight."""
     scale = in_size / out_size
@@ -81,13 +90,26 @@ def _linear_weights(out_size: int, in_size: int):
 
 def resize_trilinear(volume: np.ndarray, out_shape) -> np.ndarray:
     """Trilinear resize of a 3D volume, or of each channel of a [C, D, H, W]
-    array, as F.interpolate(mode='trilinear', align_corners=False): one
-    separable linear pass per axis, float32."""
+    array, as F.interpolate(mode='trilinear', align_corners=False), float32:
+    the native kernel when it is built and the shape changes, else one
+    separable linear pass per axis."""
     volume = np.asarray(volume, dtype=np.float32)
     if volume.ndim == 4:
         return np.stack([resize_trilinear(c, out_shape) for c in volume])
     if volume.ndim != 3:
         raise ValueError(f"resize_trilinear: expected a 3D or 4D volume, got {volume.shape}")
+    if tuple(volume.shape) != tuple(out_shape):
+        from micformer_tpu_torch import native
+
+        out = native.resize_trilinear_f32(volume, out_shape)
+        if out is not None:
+            return out
+    return _resize_trilinear_py(volume, out_shape)
+
+
+def _resize_trilinear_py(volume: np.ndarray, out_shape) -> np.ndarray:
+    """The numpy trilinear resize of a float32 3D volume: one separable
+    linear pass per axis."""
     out = volume
     for axis, out_size in enumerate(out_shape):
         in_size = out.shape[axis]
@@ -152,3 +174,74 @@ def nonzero_bbox(volume_sum: np.ndarray):
     mins = [max(0, int(a.min()) - 1) for a in idx]
     maxs = [int(a.max()) + 1 for a in idx]
     return tuple((lo, hi) for lo, hi in zip(mins, maxs))
+
+
+def pad_batch_to_max_shape(shapes, divisor=16):
+    """Common batch shape: the per-axis max rounded up to a multiple of
+    `divisor` (reference batch_utils.py:7-20, deterministic)."""
+    maxes = np.max(np.asarray(shapes), axis=0)
+    return tuple(int(-(-m // divisor) * divisor) for m in maxes)
+
+
+def remove_unwanted_background(image: np.ndarray, threshold: float = 1e-5) -> np.ndarray:
+    """Crop to the bounding box of voxels above `threshold`; every axis is
+    cropped, the channel axis too, as the reference does (image_utils.py:81-90)."""
+    idx = np.nonzero(image > threshold)
+    bbox = tuple(slice(int(a.min()), int(a.max()) + 1) for a in idx)
+    return image[bbox]
+
+
+def random_crop(*images, min_perc: float = 0.5, max_perc: float = 1.0, rng=None):
+    """One random crop of channel-first arrays to a random fraction of each
+    spatial extent; the channel axis is never cropped (reference
+    random_crop2d, image_utils.py:93-118). `rng`: a np.random.Generator.
+
+    The reference's random_crop3d hands its percentages positionally into
+    random_crop2d's *images, a defect of the reference that the JAX package
+    does not copy: both names are this function."""
+    if len({tuple(im.shape) for im in images}) > 1:
+        raise ValueError("Image shapes do not match")
+    if rng is None:
+        rng = np.random.default_rng()
+    shape = images[0].shape
+    bbox = [slice(0, shape[0])]
+    for ax_size in shape[1:]:
+        size = max(1, int(ax_size * rng.uniform(min_perc, max_perc)))
+        lo = int(rng.integers(0, ax_size - size + 1))
+        bbox.append(slice(lo, lo + size))
+    bbox = tuple(bbox)
+    cropped = [im[bbox] for im in images]
+    return cropped[0] if len(cropped) == 1 else cropped
+
+
+random_crop2d = random_crop
+random_crop3d = random_crop
+
+
+def collate_pad_batch(images, labels, divisor: int = 16, rng=None):
+    """Stack [C, Z, Y, X] samples of several shapes into one batch, each
+    padded to `pad_batch_to_max_shape` (reference custom_collate,
+    batch_utils.py:7-37). With `rng` (a np.random.Generator) each deficit is
+    split at random between the two sides; without, it all goes right."""
+    target = pad_batch_to_max_shape([im.shape[1:] for im in images], divisor)
+    out_im, out_lb = [], []
+    for im, lb in zip(images, labels):
+        pads = [(0, 0)]
+        for t, dim in zip(target, im.shape[1:]):
+            deficit = t - dim
+            assert deficit >= 0, "Negative padding value error !!"
+            left = int(rng.integers(0, deficit + 1)) if rng is not None and deficit else 0
+            pads.append((left, deficit - left))
+        out_im.append(np.pad(im, pads))
+        out_lb.append(np.pad(lb, pads))
+    return np.stack(out_im), np.stack(out_lb)
+
+
+def pad_batch1_to_compatible_size(batch: np.ndarray, divisor: int = 16):
+    """Right-pad a [B, C, Z, Y, X] array so each spatial axis divides
+    `divisor`; returns (padded, (zpad, ypad, xpad)) for un-padding after
+    inference (reference batch_utils.py:40-54)."""
+    zyx = batch.shape[-3:]
+    pads = tuple(int(-(-d // divisor) * divisor) - d for d in zyx)
+    padded = np.pad(batch, [(0, 0)] * (batch.ndim - 3) + [(0, p) for p in pads])
+    return padded, pads

@@ -1,8 +1,10 @@
-"""Pure-Python NIfTI-1 reader and writer.
+"""NIfTI-1 reader and writer.
 
 The port's own copy of `micformer_tpu/data/nifti.py` (`read_nifti`,
 `write_nifti`). Arrays are in (z, y, x) index order, the SimpleITK
-convention of the reference's data loaders.
+convention of the reference's data loaders. `read_nifti(..., dtype=float32)`
+reads through the native library (`micformer_tpu_torch.native`) when it is
+built, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -127,7 +129,16 @@ def read_nifti(path, dtype=None, with_header=False):
 
     Returns the array in (z, y, x) index order (SimpleITK convention, matching
     reference MMWHS.py:407-409), with scl_slope/inter applied when nontrivial.
+    A float32 read without the header goes through the native reader
+    (`micformer_tpu_torch.native`) when it is built; the Python path keeps the
+    stored dtype.
     """
+    if not with_header and dtype is not None and np.dtype(dtype) == np.float32:
+        from micformer_tpu_torch import native
+
+        arr = native.read_nifti_f32(path)
+        if arr is not None:
+            return arr
     with _open_maybe_gzip(path) as f:
         raw = f.read()
     hdr = _parse_header(raw)

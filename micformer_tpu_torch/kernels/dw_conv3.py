@@ -6,8 +6,11 @@ contiguous and w the Conv3d depthwise weight [C, 1, k, k, k]. An optional
 per-channel bias is added before the one rounding of the output, so the
 caller makes no second pass.
 
-`dw_conv3` is differentiable through a `torch.autograd.Function`: the
-forward is the kernel `csrc/dw_conv3.cu`; the backward takes dx from the same
+The forward kernel `csrc/dw_conv3.cu` runs through the PyTorch custom op
+`micformer_tpu_torch::dw_conv3`, so `torch.export` captures it as one node of
+the graph; its real implementation is `_forward`. `dw_conv3` is
+differentiable through a `torch.autograd.Function`: the forward is the op;
+the backward takes dx from the same
 kernel on the spatially flipped weight (as `_bwd` does) and dw and db from
 the kernel `csrc/dw_conv3_wgrad.cu` (their headers give the bounds and the
 designs). When no gradient is asked for, as in serving, it calls the forward
@@ -37,7 +40,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from micformer_tpu_torch.kernels import LAUNCHES, _build
+from micformer_tpu_torch.kernels import CALLS, LAUNCHES, _build
 
 KERNEL_SIZES = (3, 5)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -229,6 +232,8 @@ def _check(x, w, bias):
                          f"{tuple(_DTYPE_CODES)}, got {[t.dtype for t in tensors]}")
     if any(t.device != x.device for t in tensors):
         raise ValueError("dw_conv3: x, w and bias devices differ")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"dw_conv3: unsupported device {x.device}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("dw_conv3: x, w and bias must be contiguous "
                          "(x in [B, C, D, H, W] order)")
@@ -355,6 +360,17 @@ def dw_conv3_backward(x, w, g, need_dx: bool = True, need_dwb: bool = True):
     return dx, dw, db
 
 
+@torch.library.custom_op("micformer_tpu_torch::dw_conv3", mutates_args=())
+def dw_conv3_op(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+    """The forward as a custom op: `_forward` on checked tensors."""
+    return _forward(x, w, bias)
+
+
+@dw_conv3_op.register_fake
+def _(x, w, bias):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
 class _DwConv3(torch.autograd.Function):
     """K3 forward; `dw_conv3_backward` for what autograd needs."""
 
@@ -363,7 +379,7 @@ class _DwConv3(torch.autograd.Function):
     def forward(ctx, x, w, bias):
         ctx.save_for_backward(x, w)
         ctx.has_bias = bias is not None
-        return _forward(x, w, bias)
+        return dw_conv3_op(x, w, bias)
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")
@@ -384,7 +400,8 @@ def dw_conv3(x, w, bias=None):
     [C] or None, all float32 or all bfloat16; anything else raises. Returns
     [B, C, D, H, W] in x's dtype."""
     _check(x, w, bias)
+    CALLS["dw_conv3"] += 1
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, w, bias)):
         return _DwConv3.apply(x, w, bias)
-    return _forward(x, w, bias)           # no gradient asked for, as in serving
+    return dw_conv3_op(x, w, bias)        # no gradient asked for, as in serving

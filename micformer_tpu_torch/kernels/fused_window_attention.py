@@ -9,9 +9,12 @@ the entry `fused_window_attention_backward` of
 `csrc/window_attention_backward.cu`, each launching its own kernel function
 (`fused_window_attention_kernel`, `fused_window_attention_backward_kernel`)
 around the device code K1's kernels run. Their headers give the bounds and
-the designs. `fused_window_attention` is differentiable through a
-`torch.autograd.Function` whose forward and backward are the two kernels;
-when no gradient is asked for it calls the forward directly.
+the designs. The forward is the PyTorch custom op
+`micformer_tpu_torch::fused_window_attention`, so `torch.export` captures it
+as one node of the graph; its real implementation is `_forward`.
+`fused_window_attention` is differentiable through a
+`torch.autograd.Function` whose forward is the op and whose backward is the
+backward kernel; when no gradient is asked for it calls the op directly.
 
 Both compute on one of K1's two routes, which `_fused_route` picks from the
 shapes, dtype and alignment alone: "mma" (bf16, T = 8, d a multiple of 16,
@@ -36,7 +39,7 @@ import functools
 
 import torch
 
-from micformer_tpu_torch.kernels import LAUNCHES, _build
+from micformer_tpu_torch.kernels import CALLS, LAUNCHES, _build
 from micformer_tpu_torch.kernels.window_attention import (
     _ELEMENT_BYTES, DTYPE_CODES, ROUTE_NAMES, ROUTES, _aligned, _attn_plan, _attn_smem, _sms,
     launch_attention_backward,
@@ -238,6 +241,22 @@ def _backward(q, k, v, g, scale, route=None):
     return dq, dk, dv
 
 
+@torch.library.custom_op("micformer_tpu_torch::fused_window_attention", mutates_args=())
+def fused_window_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              scale: float | None) -> torch.Tensor:
+    """The forward as a custom op: `_forward`, its result laid out as
+    `_empty_like_layout(q)` on either device (the fake's strides)."""
+    out = _forward(q, k, v, scale)
+    if q.device.type == "cpu":
+        out = _empty_like_layout(q).copy_(out)
+    return out
+
+
+@fused_window_attention_op.register_fake
+def _(q, k, v, scale):
+    return _empty_like_layout(q)
+
+
 class _FusedWindowAttention(torch.autograd.Function):
     """K2 forward, K2 backward; the plain versions for CPU tensors."""
 
@@ -246,7 +265,7 @@ class _FusedWindowAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, scale):
         ctx.save_for_backward(q, k, v)
         ctx.scale = scale
-        return _forward(q, k, v, scale)
+        return fused_window_attention_op(q, k, v, scale)
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")
@@ -263,6 +282,7 @@ def fused_window_attention(q, k, v, scale=None):
     (any other strides), float32 or bfloat16; anything else raises. The
     result is laid out as `_empty_like_layout(q)`."""
     _check(q, k, v)
+    CALLS["fused_window_attention"] += 1
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FusedWindowAttention.apply(q, k, v, scale)
-    return _forward(q, k, v, scale)       # no gradient asked for, as in serving
+    return fused_window_attention_op(q, k, v, scale)   # no gradient asked for, as in serving

@@ -3,9 +3,12 @@
 Counterpart of `micformer_tpu/ops/pallas/window_attention_v2.py` (K1). The
 forward kernel is `csrc/window_attention.cu`, the backward kernel
 `csrc/window_attention_backward.cu` (their headers give the bounds and the
-designs). `window_attention` is differentiable through a
-`torch.autograd.Function` whose forward and backward are the two kernels;
-when no gradient is asked for it calls the forward directly.
+designs). The forward is the PyTorch custom op
+`micformer_tpu_torch::window_attention`, so `torch.export` captures it as one
+node of the graph; its real implementation is `_forward`. `window_attention`
+is differentiable through a `torch.autograd.Function` whose forward is the
+op and whose backward is the backward kernel; when no gradient is asked for
+it calls the op directly.
 
 `window_attention` and `window_attention_backward` launch their kernels for
 CUDA tensors and raise on what a kernel does not take; for CPU tensors they
@@ -33,7 +36,7 @@ import functools
 
 import torch
 
-from micformer_tpu_torch.kernels import LAUNCHES, _build
+from micformer_tpu_torch.kernels import CALLS, LAUNCHES, _build
 
 MAX_T = 16
 HEAD_DIMS = (8, 16, 32, 64)
@@ -333,6 +336,19 @@ def _backward(q, k, v, g, scale, route=None):
     return dq, dk, dv
 
 
+@torch.library.custom_op("micformer_tpu_torch::window_attention", mutates_args=())
+def window_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float | None) -> torch.Tensor:
+    """The forward as a custom op: `_forward`, its result contiguous as the
+    kernel writes it."""
+    return _forward(q, k, v, scale).contiguous()
+
+
+@window_attention_op.register_fake
+def _(q, k, v, scale):
+    return q.new_empty(q.shape)
+
+
 class _WindowAttention(torch.autograd.Function):
     """K1 forward, K1 backward; the plain versions for CPU tensors."""
 
@@ -341,7 +357,7 @@ class _WindowAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, scale):
         ctx.save_for_backward(q, k, v)
         ctx.scale = scale
-        return _forward(q, k, v, scale)
+        return window_attention_op(q, k, v, scale)
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")
@@ -359,6 +375,7 @@ def window_attention(q, k, v, scale=None):
     _check(q, k, v)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"window_attention: unsupported device {q.device}")
+    CALLS["window_attention"] += 1
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _WindowAttention.apply(q, k, v, scale)
-    return _forward(q, k, v, scale)       # no gradient asked for, as in serving
+    return window_attention_op(q, k, v, scale)   # no gradient asked for, as in serving

@@ -61,3 +61,11 @@ def reference_points(D: int, H: int, W: int, faithful: bool = True,
     gz, gy, gx = torch.meshgrid(*lin, indexing="ij")
     nz, ny, nx = (H, W, D) if faithful else (D, H, W)
     return torch.stack([gz / nz * 2 - 1, gy / ny * 2 - 1, gx / nx * 2 - 1])[None]
+
+
+def inverse_stn_warp(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """The reference's Re_SpatialTransformer (STN.py:35-42): warp the flow by
+    itself, negate it, then warp src [B, D, H, W, C] by the result, a
+    first-order estimate of the inverse deformation. flow: [B, 3, D, H, W]."""
+    warped_flow = stn_warp(flow.movedim(1, -1), flow)
+    return stn_warp(src, -warped_flow.movedim(-1, 1))

@@ -1,10 +1,10 @@
 """3D window partitioning on channels-last [B, D, H, W, C] tensors.
 
 Counterpart of `micformer_tpu/ops/windows.py`: partition, reverse, the
-window clamp, the cyclic shift, and the shifted-window region ids and
-relative-position indices, which are numpy built on the host once per
-shape (as the JAX package builds them at trace time) and reach the device
-with the attention that uses them.
+27-neighbourhood area partition, the window clamp, the cyclic shift, and
+the shifted-window region ids and relative-position indices, which are
+numpy built on the host once per shape (as the JAX package builds them at
+trace time) and reach the device with the attention that uses them.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def window_partition(x: torch.Tensor, window_size) -> torch.Tensor:
@@ -35,6 +36,28 @@ def window_reverse(windows: torch.Tensor, window_size, B: int, D: int, H: int,
     x = windows.reshape(B, D // wd, H // wh, W // ww, wd, wh, ww, C)
     x = x.permute(0, 1, 4, 2, 5, 3, 6, 7)
     return x.reshape(B, D, H, W, C)
+
+
+def window_area_partition(x: torch.Tensor, window_size) -> torch.Tensor:
+    """XMorpher-style 27-neighbourhood K/V area expansion: for every window,
+    the tokens of its 3x3x3 neighbourhood on the window grid (zero-padded by
+    one window slot a side). [B, D, H, W, C] -> [B * nWindows,
+    27 * prod(window_size), C], the neighbour slots z-major, then y, then x
+    (slot 13 is the window itself).
+
+    The reference's K/V expansion (MicFormer/models/MICFormer_self.py:53-114,
+    dead code there) with its defects left out, as the JAX package leaves
+    them out: every slot written once, any batch size, any device."""
+    B, D, H, W, C = x.shape
+    wd, wh, ww = window_size
+    d, h, w = D // wd, H // wh, W // ww
+    T = wd * wh * ww
+    grid = x.reshape(B, d, wd, h, wh, w, ww, C)
+    grid = grid.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(B, d, h, w, T, C)
+    grid = F.pad(grid, (0, 0, 0, 0, 1, 1, 1, 1, 1, 1))
+    slots = [grid[:, dz:dz + d, dy:dy + h, dx:dx + w]
+             for dz in range(3) for dy in range(3) for dx in range(3)]
+    return torch.stack(slots, dim=4).reshape(B * d * h * w, 27 * T, C)
 
 
 def adjust_window_shift(input_size, window_size, shift_size=None):

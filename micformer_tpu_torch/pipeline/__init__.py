@@ -1,1 +1,3 @@
-"""Host-side postprocessing and evaluation of segmentations."""
+"""Host-side pipeline: experiment planning, plan-driven preprocessing, dataset
+integrity checks, model selection, postprocessing and evaluation of
+segmentations."""

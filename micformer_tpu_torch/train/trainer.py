@@ -69,6 +69,7 @@ from micformer_tpu_torch.train.checkpoint import CheckpointManager
 from micformer_tpu_torch.train.logging import MetricsWriter, save_metrics
 from micformer_tpu_torch.train.meters import AverageMeter, ProgressMeter, Timer
 from micformer_tpu_torch.train.schedules import cosine_annealing, poly_lr
+from micformer_tpu_torch.utils import count_parameters
 
 
 LOSSES = {"mdice": mdice_loss, "dice_ce": softmax_dice_ce_loss, "gdl": generalized_dice_loss,
@@ -399,7 +400,7 @@ class Trainer:
 
     def fit(self, train_loader, val_loader=None, resume: bool = False, log_every: int = 10):
         cfg = self.cfg
-        n_params = sum(p.numel() for p in self.params)
+        n_params = count_parameters(self.params)
         print(f"model parameters: {n_params:,}", flush=True)
         self._log({"n_parameters": n_params})
         if cfg.pretrained:

@@ -1,7 +1,8 @@
 """The port's CUDA sources ship with the package: every file a kernel
 source includes from `csrc/`, and every source `_build` compiles, is matched
 by the package-data globs of pyproject.toml, so an installed (non-editable)
-port can build its kernels."""
+port can build its kernels; so does the native reader's C++ source, which
+`micformer_tpu_torch.native` compiles at first use."""
 
 import fnmatch
 import os
@@ -10,6 +11,7 @@ import tomllib
 
 import pytest
 
+from micformer_tpu_torch import native
 from micformer_tpu_torch.kernels import _build
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -43,3 +45,13 @@ def test_every_source_and_its_includes_ship(name):
     for inc in _includes(name):
         assert os.path.exists(os.path.join(_build.CSRC, inc)), f"{name} includes missing {inc}"
         assert _shipped(inc), f"{inc} (included by {name}) is not package data"
+
+
+def test_native_source_ships():
+    """The one C++ source `native` builds lies in native/ and is package
+    data, and it includes no local header."""
+    rel = os.path.relpath(native.SOURCE, os.path.dirname(_build.CSRC))
+    assert rel == "native/nifti_native.cpp" and os.path.exists(native.SOURCE)
+    assert any(fnmatch.fnmatch(rel, g) for g in _globs())
+    with open(native.SOURCE) as f:
+        assert not re.findall(r'^\s*#\s*include\s+"([^"]+)"', f.read(), flags=re.M)

@@ -78,7 +78,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "models.generic_unet", "infer.sliding_window_2d", "ops.windows",
                  "models.unet3d", "models.nnformer", "models.swinunet3d", "models.vtunet",
                  "models.swinunetr", "models.transbts", "models.transunet", "ops.pe",
-                 "parallel.tensor"):
+                 "parallel.tensor", "cli.export", "convert.aot_export", "convert.swin2d",
+                 "cli.plan", "cli.preprocess", "pipeline.planner", "pipeline.preprocessing",
+                 "pipeline.sanity_checks", "pipeline.model_selection", "data.brats", "utils",
+                 "native"):
         assert f"micformer_tpu_torch.{name}" in lines[0], name
     assert lines[-1] == "BAD []", lines[-1]
 
@@ -149,5 +152,6 @@ def test_serve_takes_exactly_one_weight_source(tmp_path):
     for source in ([], ["--weights", str(weights), "--run-dir", str(tmp_path)]):
         with pytest.raises(SystemExit):
             _serve(source, tmp_path / "in", tmp_path / "out", 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-        _serve(["--exported", str(tmp_path)], tmp_path / "in", tmp_path / "out", 1)
+    with pytest.raises(SystemExit):
+        _serve(["--exported", str(tmp_path), "--weights", str(weights)], tmp_path / "in",
+               tmp_path / "out", 1)
