@@ -182,7 +182,21 @@ Phases; any error in any of them fails the run (non-zero exit, no result line):
                the Python ones where the native library built (phase 2 builds
                it; its compiler message when it fails, which fails nothing: it
                is host code off the device).
- 13. lines   - a {"kernels": [...]} line, then the {"ok": true, ...} line last.
+ 13. reference - the reference's own checkpoints imported onto the card: for
+               MicFormer and MedNeXt-S at full width with phase 4's seeded weights,
+               the weights written in the reference's names and layout (the
+               inverse of the port's importer rules, tests/torch_port_reference.py;
+               MicFormer's dead swin.concat_back_dim.0 included), saved as the
+               reference's trainer saves them (torch.save of {"epoch",
+               "state_dict", "optimizer", "scheduler"} to model_best.pth.tar),
+               torch.load(map_location="cuda", weights_only=True), imported into a
+               freshly built model on the card (convert.torch_import,
+               convert.zoo_import): every parameter equal to the source's, one
+               1x2x64³ f32 forward (TF32 off, cuDNN deterministic) bitwise equal
+               to the source model's with K1 96 and K3 18 launches; the unread
+               keys exactly the dead ones. Printed: each import's seconds (load
+               and import) and its unread keys. No fallback to the plain versions.
+ 14. lines   - a {"kernels": [...]} line, then the {"ok": true, ...} line last.
 """
 
 from __future__ import annotations
@@ -2777,6 +2791,94 @@ def phase_host_tools(work):
     return res
 
 
+# phase 13: the reference's checkpoints. Per model: the port's rules, its
+# importer, the launches of the imported model's forward and the reference
+# keys that no rule reads (name -> shape; MicFormer's Head builds
+# concat_back_dim.0, Linear(2·8E, 8E) at embed E = 48, and never uses it)
+REFERENCE_DEVICE = "cuda"
+REFERENCE_IMPORTS = {
+    "micformer": ("convert.torch_import", "micformer", expect(window_attention=96),
+                  {"swin.concat_back_dim.0.weight": (384, 768),
+                   "swin.concat_back_dim.0.bias": (384,)}),
+    "mednext": ("convert.zoo_import", "mednext", expect(dw_conv3=18), {}),
+}
+
+
+def phase_reference(work):
+    """Phase 13: see the module docstring."""
+    import importlib
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_port_reference import reference_state_dict
+
+    from micformer_tpu_torch import registry
+    from micformer_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    t_phase = time.perf_counter()
+    dev = REFERENCE_DEVICE
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(1, 2, 64, 64, 64)).astype(np.float32)).to(dev)
+    res = {"launches": expect()}
+    try:
+        for name, (module, family, want, dead) in REFERENCE_IMPORTS.items():
+            mod = importlib.import_module(f"micformer_tpu_torch.{module}")
+            src = registry.build(name, device=dev, generator=torch.Generator().manual_seed(0))
+            gen = torch.Generator().manual_seed(1)
+            extra = {k: torch.randn(shape, generator=gen).to(dev) for k, shape in dead.items()}
+            ref = reference_state_dict(src.state_dict(), getattr(mod, f"{family}_rules")(src),
+                                       extra)
+            opt = torch.optim.AdamW(src.parameters(), lr=1e-4, weight_decay=1e-5)
+            sched = torch.optim.lr_scheduler.CosineAnnealingLR(opt, T_max=100)
+            path = os.path.join(work, f"reference_{name}", "model_best.pth.tar")
+            os.makedirs(os.path.dirname(path))
+            torch.save({"epoch": 100, "state_dict": ref, "optimizer": opt.state_dict(),
+                        "scheduler": sched.state_dict()}, path)
+            del ref, opt, sched
+            dst = registry.build(name, device=dev, generator=torch.Generator().manual_seed(1))
+            t0 = time.perf_counter()
+            ckpt = torch.load(path, map_location=dev, weights_only=True)
+            load_s = time.perf_counter() - t0
+            state, unused = getattr(mod, f"{family}_state_from_torch")(ckpt["state_dict"], dst)
+            dst.load_state_dict(state)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            import_s = time.perf_counter() - t0
+            theirs = dict(dst.named_parameters())
+            differ = [k for k, p in src.named_parameters() if not torch.equal(p, theirs[k])]
+            with torch.no_grad():
+                want_out = src(x)
+                reset_launches()
+                got = dst(x)
+                launches = dict(LAUNCHES)
+            bitwise = torch.equal(got, want_out)
+            res[name] = {"load_s": load_s, "import_s": import_s, "unused": unused,
+                         "launches": launches, "bitwise": bitwise, "differ": differ,
+                         "file_mb": os.path.getsize(path) / 2 ** 20}
+            log(f"reference {name}: model_best.pth.tar {res[name]['file_mb']:.1f} MB, "
+                f"torch.load onto {dev} {load_s:.3f} s, load and import {import_s:.3f} s; "
+                f"unread keys {unused}; parameters differing from the source "
+                f"{len(differ)}; forward 1x2x64³ f32 bitwise equal to the source's: "
+                f"{bitwise}, launches {launches}")
+            if (differ or not bitwise or launches != want or unused != sorted(dead)
+                    or got.shape != (1, 8, 64, 64, 64) or not torch.isfinite(got).all()):
+                raise AssertionError(
+                    f"reference {name}: differing parameters {differ[:5]}, bitwise "
+                    f"{bitwise}, launches {launches} (want {want}), unread {unused} "
+                    f"(want {sorted(dead)}), output {tuple(got.shape)}")
+            res["launches"] = {k: res["launches"][k] + launches[k] for k in launches}
+            del src, dst, state, ckpt
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"reference phase: {res['wall_s']:.2f} s")
+    return res
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -2821,6 +2923,7 @@ def main():
         phase_zoo(work)
         phase_tensor(work)
         exported = phase_export(work, serve)
+        reference = phase_reference(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2831,7 +2934,8 @@ def main():
     # kernel on its training [2, 32, 128³]. Launches are each path's: K1 and
     # K3 from the serve phase's three volumes, the backwards and K2 from the
     # train phase's runs that use them, wgrad from the three MedNeXt runs;
-    # K1, K2 and K3 add the export phase's (its artifacts' requests)
+    # K1, K2 and K3 add the export phase's (its artifacts' requests), K1
+    # and K3 the reference phase's
     def stage0(rows, shape):
         return next(r for r in rows if r["shape"] == list(shape)
                     and r.get("layout", "self") == "self" and r["dtype"] == "bfloat16")
@@ -2851,7 +2955,8 @@ def main():
               {"dw_conv3_wgrad": sum(r["launches"]["dw_conv3_wgrad"] for n, r in train.items()
                                      if n.startswith("mednext"))})]
     kernels = [{"name": name, **KERNELS[name],
-                "launches": launches[name] + exported["launches"][name],
+                "launches": (launches[name] + exported["launches"][name]
+                             + reference["launches"][name]),
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 **{k: row[k] for k in timed + ("layout", "k", "route") if k in row}}
                for name, row, rows, launches in lines]

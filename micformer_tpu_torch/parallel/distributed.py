@@ -30,6 +30,8 @@ import os
 import torch
 import torch.distributed as dist
 
+from micformer_tpu_torch.registry import resolve_device
+
 # long enough for a rank that builds the kernels or saves a checkpoint while
 # the others wait at a collective
 TIMEOUT = datetime.timedelta(minutes=10)
@@ -63,11 +65,14 @@ def choose_backend(device, local_world_size: int) -> tuple[str, str]:
     return "nccl", f"{local_world_size} ranks, {count} card(s): one card a rank"
 
 
-def initialize(device="cpu", init_method: str | None = None, world_size: int | None = None,
+def initialize(device="cuda", init_method: str | None = None, world_size: int | None = None,
                rank: int | None = None) -> torch.device:
     """Join this process to the group (see the module docstring) and return
-    its device. `device` is the device the caller asked for ("cuda" or
-    "cpu"); on a card the rank's device becomes the current one."""
+    its device. `device` is the device the caller asked for ("cuda", the
+    default, or "cpu"); CUDA asked for where there is none raises before
+    anything is joined; on a card the rank's device becomes the current
+    one."""
+    resolve_device(device)
     if not dist.is_initialized():
         env = os.environ
         local_world = None
@@ -126,7 +131,7 @@ def shutdown(wait: bool = True):
 
 
 @contextlib.contextmanager
-def joined(device="cpu", **kwargs):
+def joined(device="cuda", **kwargs):
     """`initialize(device, **kwargs)` for the body of a with statement,
     which gets the rank's device. A group that this call joined is left on
     the way out: after the barrier when the body ends, without it when the

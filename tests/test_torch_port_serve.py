@@ -81,7 +81,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "parallel.tensor", "cli.export", "convert.aot_export", "convert.swin2d",
                  "cli.plan", "cli.preprocess", "pipeline.planner", "pipeline.preprocessing",
                  "pipeline.sanity_checks", "pipeline.model_selection", "data.brats", "utils",
-                 "native"):
+                 "native", "convert.torch_import", "convert.zoo_import"):
         assert f"micformer_tpu_torch.{name}" in lines[0], name
     assert lines[-1] == "BAD []", lines[-1]
 

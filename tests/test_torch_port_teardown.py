@@ -75,6 +75,24 @@ def test_joined_keeps_a_group_joined_before(tmp_path):
     assert not dist.is_initialized() and not store.exists()
 
 
+@pytest.mark.parametrize("entry", ["initialize", "joined"])
+def test_bare_call_asks_for_the_card_and_joins_nothing_without_one(tmp_path, monkeypatch,
+                                                                    entry):
+    """With no device, initialize and joined ask for the card, as the JAX
+    package's initialize() is called; without one they raise before any
+    group is joined (the store a join would create never appears)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    store = tmp_path / "store"
+    kw = dict(init_method=f"file://{store}", world_size=1, rank=0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if entry == "initialize":
+            distributed.initialize(**kw)
+        else:
+            with distributed.joined(**kw):
+                pass
+    assert not dist.is_initialized() and not store.exists()
+
+
 def test_cli_train_rank_leaves_its_group(tmp_path):
     """cli/train.main --mesh data=2 on two spawned ranks that it joins
     itself (env://): the group is gone when main returns."""
