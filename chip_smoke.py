@@ -196,7 +196,23 @@ Phases; any error in any of them fails the run (non-zero exit, no result line):
                to the source model's with K1 96 and K3 18 launches; the unread
                keys exactly the dead ones. Printed: each import's seconds (load
                and import) and its unread keys. No fallback to the plain versions.
- 14. lines   - a {"kernels": [...]} line, then the {"ok": true, ...} line last.
+ 14. features - the last features of the JAX package: (a) the inference
+               rel-pos cache (models.layers.materialize_rpe_cache) on phase 10's
+               served SwinUNETR (feature 12), VT-UNet (embed 96) and nnFormer
+               (embed 96), seeded, at 1x2x128³: one f32 forward (TF32 off) cached
+               against uncached within FEATURE_CACHE_REL of max |logit|, the table
+               gathers of each (every biased block uncached, none cached), and the
+               bf16 forward's median ms of 5 each way (CUDA events); (b) cli/export
+               --platforms cuda cpu of phase 6's MedNeXt-S run (f32, 64³, roi 64),
+               started with phase 12's exports and run behind them, then served
+               once by cli/serve --exported on each device (live cpu serving in a
+               thread beside the cuda request, after (a)): 0 voxels differing from live
+               serving on that device (cuDNN deterministic), 18
+               dw_conv3 op nodes in each program, 18 K3 launches from the cuda
+               program as live, none from the cpu one. Phase 10's nnFormer predict
+               reads the cache too (its gathers, once a fold, and cache reads are
+               printed there). Then the script's total seconds.
+ 15. lines   - a {"kernels": [...]} line, then the {"ok": true, ...} line last.
 """
 
 from __future__ import annotations
@@ -220,6 +236,7 @@ import torch
 import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense, no TF32
 # K3 multiplies and adds in f32 on the CUDA cores whatever its input type: a
@@ -2304,6 +2321,7 @@ def phase_zoo(work):
         sliding_window_inference, sliding_window_inference_2d,
     )
     from micformer_tpu_torch.kernels import ATTENTION_PATHS, LAUNCHES, reset_launches
+    from micformer_tpu_torch.models.layers import RPE_COUNTS
 
     t_phase = time.perf_counter()
     res = {"slice": {}, "serve": {}, "train": {}, "predict": {}}
@@ -2377,19 +2395,28 @@ def phase_zoo(work):
             torch.cuda.reset_peak_memory_stats()
             reset_launches()
             reset_all_routes()
+            rpe0 = dict(RPE_COUNTS)
             t0 = time.perf_counter()
             recs = predict.main(grid + extra + ["--out", out, "--run-dirs", runs[run]])
             wall = time.perf_counter() - t0
             launches, paths = dict(LAUNCHES), dict(ATTENTION_PATHS)
+            rpe = {k: RPE_COUNTS[k] - rpe0[k] for k in rpe0}
             peak = torch.cuda.max_memory_allocated()
             r = {"wall_s": wall, "case_s": [x["seconds"] for x in recs],
                  "infer_s": [x["infer_seconds"] for x in recs], "launches": launches,
-                 "attention_paths": paths, "max_memory_allocated": peak}
+                 "attention_paths": paths, "max_memory_allocated": peak, "rel_pos": rpe}
             res["predict"][name] = r
             log(f"zoo (e) predict {name}: {len(recs)} cases 2x{size}³ f32 roi {roi} sw_batch "
                 f"{sw}: seconds a case {r['case_s']} (to the label map {r['infer_s']}), wall "
                 f"{wall:.2f} s, peak {peak / 2 ** 30:.2f} GiB, launches {launches}, "
-                f"attention paths {paths}")
+                f"attention paths {paths}, rel-pos biases gathered / read from the cache {rpe}")
+            # the 3d engine gathers each biased block's table once (materialize_rpe_cache)
+            # and every forward after reads the cache; the other runs hold no table
+            cache_ok = (rpe["gathered"] > 0 and rpe["cached"] > 0
+                        and rpe["cached"] % rpe["gathered"] == 0) if run == "3d" else \
+                rpe == {"gathered": 0, "cached": 0}
+            if not cache_ok:
+                raise AssertionError(f"predict {name}: rel-pos counts {rpe}")
             for x in recs:
                 seg = read_nifti(os.path.join(out, f"{x['patient_id']}_pred.nii.gz"))
                 if seg.shape != (size,) * 3 or seg.max() >= 8:
@@ -2616,7 +2643,7 @@ def phase_export(work, live5):
         art, out = os.path.join(work, f"art_{key}"), os.path.join(work, f"art_{key}_out")
         with open(os.path.join(art, "meta.json")) as f:
             meta = json.load(f)
-        mb = os.path.getsize(os.path.join(art, "module.pt2")) / 1e6
+        mb = sum(os.path.getsize(os.path.join(art, f)) for f in meta["programs"].values()) / 1e6
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         reset_all_routes()
@@ -2879,6 +2906,191 @@ def phase_reference(work):
     return res
 
 
+# phase 14: the last JAX features. (a) The inference rel-pos cache on the
+# biased zoo models phase 10 serves, at its roi and build kwargs; the f32 bar
+# (TF32 off): cached against uncached within this share of max |logit| (the
+# same bias values, so equal but for the order of sums)
+FEATURE_CACHE_MODELS = ("swinunetr", "vtunet", "nnformer")
+FEATURE_CACHE_REL = 1e-5
+# (b) the two-platform artifact: phase 6's MedNeXt-S run, f32, 64³ at roi 64
+# (one tile, one forward at sw_batch 4): 18 K3 op nodes in each program, 18
+# launches a request from the cuda program, none from the cpu one. Its
+# cli/export starts with phase 12's exports and runs behind them; live cpu
+# serving (a MedNeXt-S forward of seconds on the host's cores) runs in a
+# thread beside the cuda request; (a)'s timed forwards run before it starts
+FEATURE_EXPORT_SIZE = 64
+
+
+def start_platforms_export(work):
+    """cli/export --platforms cuda cpu of phase 6's MedNeXt-S run, in the
+    background: (process, start time, log path)."""
+    size = FEATURE_EXPORT_SIZE
+    log_path = os.path.join(work, "export_platforms.log")
+    with open(log_path, "w") as f:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "micformer_tpu_torch.cli.export", "--run-dir",
+             os.path.join(work, "run_mednext"), "--out", os.path.join(work, "art_platforms"),
+             "--target-shape", str(size), "--roi", str(size), "--sw-batch-size", "4",
+             "--platforms", "cuda", "cpu"], cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
+    return proc, t0, log_path
+
+
+def _event_ms(fn, reps=5):
+    """Median device ms of fn() between CUDA events, after one call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def phase_features(work, platforms_export):
+    """Phase 14: see the module docstring. platforms_export: what
+    start_platforms_export returned."""
+    from micformer_tpu_torch import registry
+    from micformer_tpu_torch.cli import serve
+    from micformer_tpu_torch.cli.serve import build_model
+    from micformer_tpu_torch.convert.aot_export import build_inference_fn
+    from micformer_tpu_torch.data.nifti import read_nifti
+    from micformer_tpu_torch.kernels import LAUNCHES, reset_launches
+    from micformer_tpu_torch.models.layers import (
+        RPE_COUNTS, clear_rpe_cache, materialize_rpe_cache,
+    )
+
+    t_phase = time.perf_counter()
+    size = FEATURE_EXPORT_SIZE
+    run, art = os.path.join(work, "run_mednext"), os.path.join(work, "art_platforms")
+    res = {"cache": {}, "artifact": {}, "launches": expect()}
+    proc, t_export, log_path = platforms_export
+    rc = proc.wait(timeout=600)
+    export_s = time.perf_counter() - t_export
+    with open(log_path) as f:
+        said = f.read().strip()
+    log(f"features (b) cli/export --platforms cuda cpu (started with phase 12's exports): rc "
+        f"{rc}, done {export_s:.2f} s after its start\n{said[-2000:]}")
+    if rc != 0:
+        raise AssertionError(f"features: cli/export --platforms cuda cpu failed (rc {rc})")
+    with open(os.path.join(art, "meta.json")) as f:
+        meta = json.load(f)
+    watch = os.path.join(work, "features_in")
+    os.makedirs(watch)
+    img = np.random.default_rng(15).normal(size=(2, size, size, size)).astype(np.float32)
+    np.save(os.path.join(watch, "q.npy"), img)
+    os.utime(os.path.join(watch, "q.npy"), (time.time() - 5,) * 2)
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    threads = torch.get_num_threads()
+
+    def live(dev):
+        """Live serving's segmentation of the request on `dev`."""
+        _, model = build_model(run_dir=run, device=dev)
+        with torch.no_grad():
+            return build_inference_fn(model, roi=(size,) * 3, sw_batch_size=4)(
+                torch.from_numpy(img[None]).to(dev))[0].cpu().numpy()
+
+    try:
+        # (a) the cache, with nothing else running on the host: its bf16
+        # forwards are launch-bound and would feel a concurrent cpu forward
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        x = torch.from_numpy(np.random.default_rng(14).normal(
+            size=(1, 2, 128, 128, 128)).astype(np.float32)).cuda()
+        for name in FEATURE_CACHE_MODELS:
+            model = registry.build(name, device="cuda", generator=torch.Generator().manual_seed(0),
+                                   **ZOO_REQUEST[name][3])
+            n = sum(getattr(m, "rel_pos_bias_table", None) is not None for m in model.modules())
+            counts = []
+            with torch.no_grad():
+                c0 = dict(RPE_COUNTS)
+                want = model(x)
+                counts.append({k: RPE_COUNTS[k] - c0[k] for k in c0})
+                materialize_rpe_cache(model, x)
+                c0 = dict(RPE_COUNTS)
+                got = model(x)
+                counts.append({k: RPE_COUNTS[k] - c0[k] for k in c0})
+                err, scale = (got - want).abs().max().item(), want.abs().max().item()
+                del got, want
+                clear_rpe_cache(model)
+                model.to(torch.bfloat16)       # registry.build's bf16 model: the cast weights
+                xb = x.bfloat16()
+                ms_gathered = _event_ms(lambda: model(xb))
+                materialize_rpe_cache(model, xb)
+                ms_cached = _event_ms(lambda: model(xb))
+            del model, xb
+            torch.cuda.empty_cache()
+            row = {"biased_blocks": n, "max_abs_err": err, "max_abs_logit": scale,
+                   "counts_uncached": counts[0], "counts_cached": counts[1],
+                   "bf16_ms_gathered": ms_gathered, "bf16_ms_cached": ms_cached}
+            res["cache"][name] = row
+            log(f"features (a) rel-pos cache {name} 1x2x128³: {n} biased blocks; f32 (TF32 off) "
+                f"cached vs uncached max |d| {err:.3e} of max |logit| {scale:.3e} (bar "
+                f"{FEATURE_CACHE_REL:g} of it); gathers / cache reads a forward uncached "
+                f"{counts[0]}, cached {counts[1]}; bf16 forward {ms_gathered:.3f} ms gathering, "
+                f"{ms_cached:.3f} ms from the cache (median of 5, CUDA events); at "
+                f"{time.perf_counter() - t_phase:.2f} s of the phase")
+            if (not err <= FEATURE_CACHE_REL * scale
+                    or counts != [{"gathered": n, "cached": 0}, {"gathered": 0, "cached": n}]):
+                raise AssertionError(f"features {name}: cached vs uncached {err} of {scale}, "
+                                     f"counts {counts} (want {n} gathered, then {n} read)")
+
+        # (b) each device's program served against live serving on that
+        # device; live cpu serving runs beside the cuda request, two cores
+        # left to the launching thread
+        torch.set_num_threads(max(1, threads - 2))
+        live_cpu = pool.submit(live, "cpu")
+        torch.backends.cudnn.deterministic = True
+        for dev in ("cuda", "cpu"):
+            out, report = os.path.join(work, f"features_out_{dev}"), {}
+            reset_launches()
+            lat = serve.main(["--exported", art, "--device", dev, "--out", out, "--watch",
+                              watch, "--max-requests", "1", "--poll", "0.05", "--idle-exit",
+                              "300"], report=report)
+            launches = dict(LAUNCHES)
+            seg = read_nifti(os.path.join(out, "q_seg.nii.gz"))
+            row = {"load_s": report["load_s"], "latency_s": lat[0],
+                   "op_nodes": report["op_nodes"], "launches": launches}
+            if dev == "cuda":
+                reset_launches()
+                want = live("cuda")
+                row["live_launches"] = dict(LAUNCHES)
+            else:
+                want = live_cpu.result()
+                torch.set_num_threads(threads)
+            row["voxels_differ"] = int(np.count_nonzero(seg != want))
+            res["artifact"][dev] = row
+            log(f"features (b) serve --exported --device {dev}: load {row['load_s']:.2f} s, "
+                f"request {row['latency_s']:.4f} s, op nodes {row['op_nodes']}, launches "
+                f"{launches}" + (f" (live serving {row['live_launches']})" if dev == "cuda"
+                                 else "") + f"; voxels that differ from live serving "
+                f"{row['voxels_differ']} of {size ** 3}; at "
+                f"{time.perf_counter() - t_phase:.2f} s of the phase")
+            want_launches = expect(dw_conv3=18) if dev == "cuda" else expect()
+            if (seg.shape != (size,) * 3 or row["voxels_differ"] or launches != want_launches
+                    or row.get("live_launches", want_launches) != want_launches
+                    or row["op_nodes"]["dw_conv3"] != 18):
+                raise AssertionError(f"features {dev}: {row}")
+        res["launches"]["dw_conv3"] += res["artifact"]["cuda"]["launches"]["dw_conv3"]
+        if meta["platforms"] != ["cuda", "cpu"]:
+            raise AssertionError(f"features: the artifact's platforms {meta['platforms']}")
+        res["artifact"]["export_s"] = export_s
+        res["artifact"]["mb"] = {p: os.path.getsize(os.path.join(art, f)) / 1e6
+                                 for p, f in meta["programs"].items()}
+    finally:
+        pool.shutdown()
+        torch.set_num_threads(threads)
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"features phase: {res['wall_s']:.2f} s")
+    return res
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -2903,6 +3115,7 @@ def main():
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     serve = {}
+    platforms_export = None
     try:
         for name in PATHS:
             model_cpu = registry.build(name, device="cpu",
@@ -2922,9 +3135,14 @@ def main():
         phase_parallel(work, predicted["direct"])
         phase_zoo(work)
         phase_tensor(work)
+        platforms_export = start_platforms_export(work)
         exported = phase_export(work, serve)
         reference = phase_reference(work)
+        features = phase_features(work, platforms_export)
     finally:
+        if platforms_export is not None and platforms_export[0].poll() is None:
+            platforms_export[0].kill()
+            platforms_export[0].wait()
         shutil.rmtree(work, ignore_errors=True)
 
     # each kernel's line times its path's stage-0 call in bf16, q/k/v in the
@@ -2935,7 +3153,8 @@ def main():
     # K3 from the serve phase's three volumes, the backwards and K2 from the
     # train phase's runs that use them, wgrad from the three MedNeXt runs;
     # K1, K2 and K3 add the export phase's (its artifacts' requests), K1
-    # and K3 the reference phase's
+    # and K3 the reference phase's, K3 the features phase's (the cuda
+    # request of the two-platform artifact)
     def stage0(rows, shape):
         return next(r for r in rows if r["shape"] == list(shape)
                     and r.get("layout", "self") == "self" and r["dtype"] == "bfloat16")
@@ -2956,7 +3175,7 @@ def main():
                                      if n.startswith("mednext"))})]
     kernels = [{"name": name, **KERNELS[name],
                 "launches": (launches[name] + exported["launches"][name]
-                             + reference["launches"][name]),
+                             + reference["launches"][name] + features["launches"][name]),
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 **{k: row[k] for k in timed + ("layout", "k", "route") if k in row}}
                for name, row, rows, launches in lines]
@@ -2964,6 +3183,7 @@ def main():
         if not kern["launches"] > 0:
             raise AssertionError(f"{kern['name']} was not launched on its path")
     log(smi)
+    log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

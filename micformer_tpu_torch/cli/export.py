@@ -5,12 +5,15 @@ Counterpart of `micformer_tpu/cli/export.py`.
     python -m micformer_tpu_torch.cli.export --run-dir runs/micformer_f0 --out art/ \
         --bf16 --target-shape 160 --roi 128
 
-writes `module.pt2` (the `torch.export` program of the whole sliding-window
-pipeline, weights held as constants, K1, K2 and K3 as custom-op nodes) and
-`meta.json`, which `cli.serve --exported art/` runs without the model zoo or
-the checkpoint. The model is rebuilt from the run by serve's rule
-(`cli.serve.build_model`). The artifact runs on the device it was exported
-on (--device, default cuda). See `convert/aot_export.py` for the format.
+writes `module.<platform>.pt2` (the `torch.export` program of the whole
+sliding-window pipeline, weights held as constants, K1, K2 and K3 as
+custom-op nodes) and `meta.json`, which `cli.serve --exported art/` runs
+without the model zoo or the checkpoint. The model is rebuilt from the run
+by serve's rule (`cli.serve.build_model`). The artifact holds a program for
+each of `--platforms` (cuda, cpu; default: --device, itself cuda by
+default), and serve runs the one of its --device; a platform this host
+cannot run (cuda without a card) raises before anything is written. See
+`convert/aot_export.py` for the format.
 """
 
 from __future__ import annotations
@@ -21,8 +24,10 @@ import time
 
 
 def main(argv=None):
+    import torch
+
     from micformer_tpu_torch.cli.serve import build_model
-    from micformer_tpu_torch.convert.aot_export import export_artifact
+    from micformer_tpu_torch.convert.aot_export import PLATFORMS, check_platforms, export_artifact
 
     p = argparse.ArgumentParser("micformer_tpu_torch.export")
     p.add_argument("--run-dir", required=True,
@@ -48,13 +53,19 @@ def main(argv=None):
                    help="MicFormer: attention through the fused kernel K2 (the JAX "
                         "package's MICFORMER_FUSED_ATTENTION=1)")
     p.add_argument("--device", default="cuda",
-                   help="the device the artifact runs on: cuda (default) or cpu")
+                   help="the device the model is built on and, without --platforms, the "
+                        "artifact runs on: cuda (default) or cpu")
+    p.add_argument("--platforms", nargs="+", default=None, choices=PLATFORMS,
+                   help="the devices the artifact holds a program for, e.g. cuda cpu "
+                        "(default: --device)")
     args = p.parse_args(argv)
 
+    here = torch.device(args.device).type
+    platforms = check_platforms(args.platforms or [here])
     model_name, model = build_model(
         run_dir=args.run_dir, model=args.model, num_classes=args.num_classes,
         ckpt_tag=args.ckpt_tag, fused_attention=args.fused_attention, bf16=args.bf16,
-        device=args.device)
+        device=args.device if here in platforms else platforms[0])
     out_dir = args.out or os.path.join(args.run_dir, "exported")
     t0 = time.perf_counter()
     meta = export_artifact(
@@ -62,9 +73,9 @@ def main(argv=None):
         num_classes=args.num_classes, overlap=args.overlap,
         sw_batch_size=args.sw_batch_size, step_mode=args.step_mode,
         mirror_tta=args.mirror_tta, argmax=not args.logits, batch=args.batch,
-        model_name=model_name)
+        platforms=platforms, model_name=model_name)
     seconds = time.perf_counter() - t0
-    size = os.path.getsize(os.path.join(out_dir, "module.pt2"))
+    size = sum(os.path.getsize(os.path.join(out_dir, f)) for f in meta["programs"].values())
     print(f"exported {model_name} -> {out_dir} ({size / 1e6:.1f} MB in {seconds:.2f} s, "
           f"platforms {meta['platforms']}, input {meta['input_shape']}, "
           f"output {meta['output']})")

@@ -12,8 +12,11 @@ by a background thread, or a pool of threads or worker processes
 The model is rebuilt from the first run's `config.json` (`config.run_model`)
 and every fold runs it with its own weights, so a `--fused-attention` run
 predicts through K2; a deep-supervised model predicts with its
-full-resolution head. Runs on the card unless --device cpu
-is given, and raises when CUDA is asked for and missing.
+full-resolution head. For the 3d engine (and `--sharded-tiles`) each fold's
+relative-position biases are gathered once, at the roi, after its weights
+load (`models.layers.materialize_rpe_cache`), as the JAX CLI does. Runs on
+the card unless --device cpu is given, and raises when CUDA is asked for and
+missing.
 
 Cascade: `--cascade-prev-seg-dir` appends the one-hot of the previous
 stage's `<pid>_segFromPrevStage.npy` (foreground labels) as input channels;
@@ -203,6 +206,7 @@ def _predict(args, device):
         sliding_window_inference_pseudo3d, sliding_window_inference_sharded,
     )
     from micformer_tpu_torch.kernels import LAUNCHES
+    from micformer_tpu_torch.models.layers import materialize_rpe_cache
     from micformer_tpu_torch.parallel import distributed
     from micformer_tpu_torch.parallel.mesh import is_primary, shard_cases
     from micformer_tpu_torch.parallel.spatial import spatial_sharded_apply
@@ -227,10 +231,22 @@ def _predict(args, device):
     if spatial and model_name != "generic_unet":
         raise SystemExit(f"--engine spatial runs generic_unet, not {model_name}")
     base = registry.build(model_name, device=device, **kwargs)
+    win0 = None
+    if args.engine == "3d" and len(ds):
+        # inference only: each fold's relative-position biases are gathered
+        # once, at the roi's windows, after its weights are loaded (a load
+        # empties the cache); a model without bias tables is left as is
+        n_ch = int(np.asarray(ds[0]["image"]).shape[0])
+        if args.cascade_prev_seg_dir:
+            n_ch += args.num_classes - 1
+        win0 = torch.zeros((1, n_ch) + (args.roi,) * 3, device=device,
+                           dtype=next(base.parameters()).dtype)
     models = []
     for rd in args.run_dirs:
         m = copy.deepcopy(base) if models else base
         m.load_state_dict(CheckpointManager(rd).restore_params_only(args.ckpt_tag))
+        if win0 is not None:
+            materialize_rpe_cache(m, win0)
         models.append(m)
 
     def infer(model, vol):

@@ -27,8 +27,9 @@ warm: the first request builds the kernel libraries if no earlier call did.
 --exported serves an artifact of cli/export (`convert/aot_export.py`): the
 whole pipeline, tiling to argmax, as one `torch.export` program whose kernels
 are custom ops. It takes an argmax artifact only, its volume shape from the
-artifact's meta.json, and runs on the artifact's device (a --device that
-differs is refused); the model zoo and the checkpoint are not read.
+artifact's meta.json, and runs the artifact's program for --device (a
+device the artifact holds no program for is refused); the model zoo and the
+checkpoint are not read.
 
     python -m micformer_tpu_torch.cli.serve --run-dir runs/mednext \
         --watch in/ --out out/ --bf16 --target-shape 160 --max-requests 3
@@ -126,7 +127,9 @@ def main(argv=None, report=None):
     the model's name, and for --exported the artifact's load seconds and
     its graph's op nodes (`aot_export.op_nodes`)."""
     from micformer_tpu_torch import native
-    from micformer_tpu_torch.convert.aot_export import build_inference_fn, load_artifact, op_nodes
+    from micformer_tpu_torch.convert.aot_export import (
+        build_inference_fn, load_artifact, op_nodes, read_meta,
+    )
     from micformer_tpu_torch.data.image_utils import NORMALIZERS
     from micformer_tpu_torch.data.nifti import write_nifti
     from micformer_tpu_torch.kernels import LAUNCHES
@@ -147,7 +150,7 @@ def main(argv=None, report=None):
                    help="JSON object of model constructor arguments")
     p.add_argument("--num_classes", type=int, default=8)
     p.add_argument("--device", default="cuda",
-                   help="cuda (default) or cpu; --exported: must be the artifact's")
+                   help="cuda (default) or cpu; --exported: one of the artifact's platforms")
     p.add_argument("--watch", required=True, help="request drop directory")
     p.add_argument("--out", required=True, help="result directory")
     p.add_argument("--target-shape", type=int, default=128,
@@ -181,15 +184,16 @@ def main(argv=None, report=None):
     if args.exported:
         # the artifact is the whole pipeline (tiling, model, blending,
         # argmax); its meta pins the serving shapes and the device
-        t0 = time.perf_counter()
-        infer, meta = load_artifact(args.exported)
-        load_s = time.perf_counter() - t0
+        meta = read_meta(args.exported)
         if meta["output"] != "argmax_uint8":
             raise SystemExit("serve needs an argmax artifact (re-export without --logits)")
         dev = torch.device(args.device)
         if dev.type not in meta["platforms"]:
             raise SystemExit(f"serve: the artifact runs on {meta['platforms']}, "
                              f"not on --device {args.device}")
+        t0 = time.perf_counter()
+        infer, meta = load_artifact(args.exported, device=dev)
+        load_s = time.perf_counter() - t0
         ts = tuple(meta["input_shape"][2:])
         model_name = meta.get("model", "exported")
         report.update(load_s=load_s, op_nodes=op_nodes(infer))

@@ -1,9 +1,9 @@
 """A reference PyTorch checkpoint -> the port's state_dict: MicFormer, and
-the machinery the zoo's importers share (`convert/zoo_import.py`).
+the machinery the zoo's importers share (`convert/zoo_import.py`); and the
+reference's own MicFormer model (`load_reference_micformer`).
 
-Counterpart of `micformer_tpu/convert/torch_import.py`, without its loader of
-the reference's model code. A MicFormer trained with the reference's own
-trainer is saved as `torch.save({"epoch", "state_dict", "optimizer",
+Counterpart of `micformer_tpu/convert/torch_import.py`. A MicFormer trained
+with the reference's own trainer is saved as `torch.save({"epoch", "state_dict", "optimizer",
 "scheduler"})` (`model_best.pth.tar`); its "state_dict" holds the `Head`'s
 `swin.*` and `out_conv.*` keys. `micformer_state_from_torch` maps those keys
 straight onto the port's parameter names, never through the flax layout:
@@ -45,10 +45,18 @@ shifted-window mask buffers, TransBTS's `pre_head_ln`.
 
 from __future__ import annotations
 
+import importlib.util
+import os
+import sys
+import types
 from typing import Any, NamedTuple
 
 import torch
 import torch.nn as nn
+
+# the reference's source tree, read by the load_reference_* functions by
+# default: the JAX package's default location of it
+REFERENCE = "/root/reference"
 
 # leaf names that differ: port -> reference
 _LEAVES = {"alpha": "weight", "rel_pos_bias_table": "relative_position_bias_table"}
@@ -175,3 +183,87 @@ def micformer_state_from_torch(state_dict, model: nn.Module):
     from a reference Head's state_dict. The depths, widths and heads are
     `model`'s."""
     return import_state(state_dict, model, micformer_rules(model))
+
+
+# ---------------------------------------------------------------------------
+# the reference's own model code, imported read-only for comparison
+# ---------------------------------------------------------------------------
+
+def _synthetic_package(name: str, path: str):
+    """Register an empty package `name` whose submodules are found under
+    `path`, so they import without running the real `__init__.py` (whose
+    imports need packages this environment lacks)."""
+    if name in sys.modules:
+        return sys.modules[name]
+    pkg = types.ModuleType(name)
+    pkg.__path__ = [path]
+    sys.modules[name] = pkg
+    return pkg
+
+
+def _load_module(full_name: str, file_path: str):
+    """Execute `file_path` as module `full_name` (once: an imported module is
+    returned as it is); a module whose execution fails is not kept."""
+    if full_name in sys.modules:
+        return sys.modules[full_name]
+    spec = importlib.util.spec_from_file_location(full_name, file_path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[full_name] = mod
+    try:
+        spec.loader.exec_module(mod)
+    except BaseException:
+        del sys.modules[full_name]
+        raise
+    return mod
+
+
+def _install_timm_shim():
+    """The reference imports `from timm.models.layers import DropPath`;
+    timm is not installed, so `timm.models.layers` is a stand-in module with
+    a DropPath of timm's semantics (identity in eval; in training each
+    sample kept with probability 1 - drop_prob from the global generator,
+    scaled by 1 / keep). Nothing is installed if a `timm` is imported
+    already."""
+    if "timm" in sys.modules:
+        return
+
+    class DropPath(nn.Module):
+        def __init__(self, drop_prob: float = 0.0):
+            super().__init__()
+            self.drop_prob = drop_prob
+
+        def forward(self, x):
+            if self.drop_prob == 0.0 or not self.training:
+                return x
+            keep = 1.0 - self.drop_prob
+            shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+            mask = torch.bernoulli(torch.full(shape, keep, device=x.device))
+            return x / keep * mask
+
+    timm = types.ModuleType("timm")
+    models = types.ModuleType("timm.models")
+    layers = types.ModuleType("timm.models.layers")
+    layers.DropPath = DropPath
+    models.layers = layers
+    timm.models = models
+    sys.modules["timm"] = timm
+    sys.modules["timm.models"] = models
+    sys.modules["timm.models.layers"] = layers
+
+
+def load_reference_micformer(reference_root: str = REFERENCE, embed_dim: int = 48,
+                             num_classes: int = 8, window_size=(2, 2, 2)):
+    """The reference's torch `Head` (MICFormer_self.py), built from its own
+    source under `reference_root` and returned in eval mode. Its modules
+    `STN` and `MICFormer_self` are imported under a synthetic package, so
+    MICFormer_self's relative import of STN resolves."""
+    _install_timm_shim()
+    models_dir = os.path.join(reference_root, "MicFormer", "models")
+    pkg = "_ref_micformer_models"
+    _synthetic_package(pkg, models_dir)
+    for name in ("STN", "MICFormer_self"):
+        _load_module(f"{pkg}.{name}", os.path.join(models_dir, name + ".py"))
+    head = sys.modules[f"{pkg}.MICFormer_self"].Head
+    model = head(n_channels=1, embed_dim=embed_dim, num_classes=num_classes,
+                 window_size=tuple(window_size))
+    return model.eval()

@@ -1,9 +1,9 @@
 """Reference PyTorch checkpoints of the zoo -> the port's state_dicts.
 
-Counterpart of `micformer_tpu/convert/zoo_import.py`, without its loaders of
-the reference's model code: for MedNeXt, TransBTS, nnFormer, SwinUnet3D,
-TransUNet, VT-UNet and one VT-UNet block, `<family>_rules(model)` names the
-reference keys that fill each parameter of the port's `model`, and
+Counterpart of `micformer_tpu/convert/zoo_import.py`: for MedNeXt, TransBTS,
+nnFormer, SwinUnet3D, TransUNet, VT-UNet and one VT-UNet block,
+`<family>_rules(model)` names the reference keys that fill each parameter of
+the port's `model`, and
 `<family>_state_from_torch(state_dict, model)` applies them
 (`torch_import.import_state`: the transforms, the errors, and the reference
 keys no rule read). Every size the mapping needs (block counts, depths, deep
@@ -31,15 +31,31 @@ Where the layouts differ:
     three ways onto q, k and v; BatchNorm goes to InstanceNorm.
   - VT-UNet (`faithful_2d_merge=True`): the standard relative-position
     index, tables copied as they are.
+
+`load_reference_<family>(reference_root, ...)` builds the reference's own
+torch model from its source under `reference_root` (default
+`torch_import.REFERENCE`) and returns it in eval mode: its modules are imported
+read-only under synthetic packages (`torch_import._synthetic_package`,
+`_load_module`), and the packages the reference imports but this
+environment lacks are stand-ins (timm's DropPath, to_2tuple, to_3tuple and
+trunc_normal_; positional_encodings' PositionalEncodingPermute3D; mmcv's
+load_checkpoint; nnFormer's network base class and initialiser).
 """
 
 from __future__ import annotations
+
+import importlib
+import os
+import sys
+import types
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-from micformer_tpu_torch.convert.torch_import import Rule, Rules, import_state
+from micformer_tpu_torch.convert.torch_import import (
+    REFERENCE, Rule, Rules, _install_timm_shim, _load_module, _synthetic_package, import_state,
+)
 
 # ---------------------------------------------------------------------------
 # MedNeXt (MedNeXt/nnunet_mednext/network_architecture/mednextv1/)
@@ -311,3 +327,229 @@ def vtunet_rules(model: nn.Module) -> Rules:
 def vtunet_state_from_torch(state_dict, model: nn.Module):
     """(state_dict, unused reference keys) for the port's VTUNet."""
     return import_state(state_dict, model, vtunet_rules(model))
+
+
+# ---------------------------------------------------------------------------
+# the reference's own models, imported read-only for comparison
+# ---------------------------------------------------------------------------
+
+def _extend_timm_shim():
+    """nnFormer, SwinUnet3D and VT-UNet also import to_3tuple, to_2tuple and
+    trunc_normal_ from timm.models.layers: added to the stand-in (timm's
+    semantics; trunc_normal_ as the stand-in the JAX package uses: a normal
+    draw clamped to [a·std, b·std])."""
+    _install_timm_shim()
+    layers = sys.modules["timm.models.layers"]
+    if hasattr(layers, "to_3tuple"):
+        return
+
+    def _to_ntuple(n):
+        def cast(x):
+            if isinstance(x, (tuple, list)):
+                return tuple(x)
+            return (x,) * n
+        return cast
+
+    def trunc_normal_(tensor, mean=0.0, std=1.0, a=-2.0, b=2.0):
+        with torch.no_grad():
+            tensor.normal_(mean, std).clamp_(min=a * std, max=b * std)
+        return tensor
+
+    layers.to_2tuple = _to_ntuple(2)
+    layers.to_3tuple = _to_ntuple(3)
+    layers.trunc_normal_ = trunc_normal_
+
+
+def _install_positional_encodings_shim():
+    """TransUNet imports `positional_encodings.torch_encodings
+    .PositionalEncodingPermute3D`; the package is not installed. The
+    stand-in adds the package's encoding: per axis ceil(C/6)·2 channels of
+    interleaved (sin, cos) pairs (`ops.pe.sinusoidal_pe_3d_interleaved`).
+    Nothing is installed if a `positional_encodings` is imported already."""
+    if "positional_encodings" in sys.modules:
+        return
+    from micformer_tpu_torch.ops.pe import sinusoidal_pe_3d_interleaved
+
+    class PositionalEncodingPermute3D(nn.Module):
+        def __init__(self, channels):
+            super().__init__()
+            self.channels = channels
+
+        def forward(self, tensor):          # [N, C, D, H, W]
+            _, c, d, h, w = tensor.shape
+            pe = sinusoidal_pe_3d_interleaved(d, h, w, c)        # [D, H, W, C]
+            pe = torch.from_numpy(np.moveaxis(pe, -1, 0)).to(tensor)
+            return pe[None].expand_as(tensor)
+
+    pkg = types.ModuleType("positional_encodings")
+    te = types.ModuleType("positional_encodings.torch_encodings")
+    te.PositionalEncodingPermute3D = PositionalEncodingPermute3D
+    pkg.torch_encodings = te
+    sys.modules["positional_encodings"] = pkg
+    sys.modules["positional_encodings.torch_encodings"] = te
+
+
+def _batch_stat_batchnorms(model: nn.Module) -> nn.Module:
+    """Every BatchNorm3d of `model` normalises with the batch's statistics,
+    in eval mode too (running statistics dropped): at batch 1 that is the
+    InstanceNorm the port (and the JAX package) put in its place."""
+    for m in model.modules():
+        if isinstance(m, nn.BatchNorm3d):
+            m.track_running_stats = False
+            m.running_mean = None
+            m.running_var = None
+    return model
+
+
+def load_reference_mednext(reference_root: str = REFERENCE, size: str = "S",
+                           in_channels: int = 2, num_classes: int = 8,
+                           kernel_size: int = 3, deep_supervision: bool = False):
+    """The reference MedNeXt from its `create_mednext_v1`, in eval mode
+    (activation checkpointing off: its path needs grad-enabled tensors)."""
+    base = os.path.join(reference_root, "MedNeXt", "nnunet_mednext",
+                        "network_architecture", "mednextv1")
+    _synthetic_package("nnunet_mednext", os.path.dirname(os.path.dirname(base)))
+    _synthetic_package("nnunet_mednext.network_architecture", os.path.dirname(base))
+    pfx = "nnunet_mednext.network_architecture.mednextv1"
+    _synthetic_package(pfx, base)
+    _load_module(pfx + ".blocks", os.path.join(base, "blocks.py"))
+    _load_module(pfx + ".MedNextV1", os.path.join(base, "MedNextV1.py"))
+    create = _load_module(pfx + ".create_mednext_v1", os.path.join(base, "create_mednext_v1.py"))
+    model = create.create_mednext_v1(in_channels, num_classes, size, kernel_size,
+                                     deep_supervision)
+    model.outside_block_checkpointing = False
+    return model.eval()
+
+
+def load_reference_transbts(reference_root: str = REFERENCE, img_dim: int = 32,
+                            num_channels: int = 2, num_classes: int = 8,
+                            embedding_dim: int = 512, num_heads: int = 8,
+                            num_layers: int = 4, hidden_dim: int = 4096):
+    """The reference TransBTS `BTS` at `img_dim`, in eval mode, with the two
+    quirks the JAX loader neutralises: InitConv's dropout (F.dropout3d with
+    no training flag, so it drops in eval too) set to 0, and the learned
+    position embedding (hard-coded to 4096 tokens, all zeros) re-drawn from
+    a normal of std 0.02 for the input's token count. Its BatchNorms use
+    the batch's statistics (`_batch_stat_batchnorms`)."""
+    base = os.path.join(reference_root, "TransBTS", "TransBTS")
+    pkg = "_ref_transbts"
+    _synthetic_package(pkg, base)
+    for mod in ("IntmdSequential", "PositionalEncoding", "Unet_skipconnection", "Transformer",
+                "TransBTS"):
+        _load_module(f"{pkg}.{mod}", os.path.join(base, mod + ".py"))
+    bts = sys.modules[f"{pkg}.TransBTS"].BTS
+    model = bts(img_dim=img_dim, patch_dim=8, num_channels=num_channels,
+                num_classes=num_classes, embedding_dim=embedding_dim, num_heads=num_heads,
+                num_layers=num_layers, hidden_dim=hidden_dim, dropout_rate=0.0,
+                attn_dropout_rate=0.0)
+    n_tokens = (img_dim // 8) ** 3
+    model.position_encoding.position_embeddings = nn.Parameter(
+        0.02 * torch.randn(1, n_tokens, embedding_dim))
+    model.Unet.InitConv.dropout = 0.0
+    return _batch_stat_batchnorms(model).eval()
+
+
+def load_reference_nnformer(reference_root: str = REFERENCE, crop_size=(64, 64, 64),
+                            embed_dim: int = 96, in_channels: int = 2, num_classes: int = 8,
+                            depths=(2, 2, 2, 2), num_heads=(3, 6, 12, 24),
+                            patch_size=(4, 4, 4), window_sizes=(4, 4, 8, 4),
+                            deep_supervision: bool = False):
+    """The reference nnFormer (nnFormer_tumor.py, the MM-WHS configuration),
+    in eval mode. Its relative imports `.neural_network` and
+    `.initialization` are stand-ins: the SegmentationNetwork base class (an
+    nn.Module) and an InitWeights_He that leaves modules as they are."""
+    _extend_timm_shim()
+    pkg = "_ref_nnformer"
+    base = os.path.join(reference_root, "nnFormer", "nnformer")
+    _synthetic_package(pkg, base)
+    if f"{pkg}.neural_network" not in sys.modules:
+        nn_mod = types.ModuleType(f"{pkg}.neural_network")
+
+        class SegmentationNetwork(nn.Module):
+            pass
+
+        nn_mod.SegmentationNetwork = SegmentationNetwork
+        sys.modules[f"{pkg}.neural_network"] = nn_mod
+        init_mod = types.ModuleType(f"{pkg}.initialization")
+
+        class InitWeights_He:
+            def __init__(self, neg_slope=1e-2):
+                self.neg_slope = neg_slope
+
+            def __call__(self, module):
+                return module
+
+        init_mod.InitWeights_He = InitWeights_He
+        sys.modules[f"{pkg}.initialization"] = init_mod
+    mod = _load_module(f"{pkg}.nnFormer_tumor", os.path.join(base, "nnFormer_tumor.py"))
+    model = mod.nnFormer(
+        crop_size=list(crop_size), embedding_dim=embed_dim, input_channels=in_channels,
+        num_classes=num_classes, depths=list(depths), num_heads=list(num_heads),
+        patch_size=list(patch_size), window_size=list(window_sizes),
+        deep_supervision=deep_supervision)
+    return model.eval()
+
+
+def load_reference_swinunet3d(reference_root: str = REFERENCE, hidden_dim: int = 96,
+                              layers=(2, 2, 4, 2), heads=(3, 6, 9, 12), in_channels: int = 2,
+                              num_classes: int = 8, head_dim: int = 32, window_size: int = 4,
+                              downscaling_factors=(4, 2, 2, 2)):
+    """The reference SwinUnet3D (SwinUnet_3D.py), in eval mode."""
+    _extend_timm_shim()
+    base = os.path.join(reference_root, "SwinUnet", "SwinUnet_3DV1")
+    mod = _load_module("_ref_swinunet3d", os.path.join(base, "SwinUnet_3D.py"))
+    model = mod.SwinUnet3D(
+        hidden_dim=hidden_dim, layers=list(layers), heads=list(heads), in_channel=in_channels,
+        num_classes=num_classes, head_dim=head_dim, window_size=window_size,
+        downscaling_factors=tuple(downscaling_factors))
+    return model.eval()
+
+
+def load_reference_transunet(reference_root: str = REFERENCE, input_shape=(2, 32, 32, 32),
+                             num_classes: int = 8, num_channels_list=(8, 16, 32, 64),
+                             patch_size_factor: int = 8):
+    """The reference TransUNet (trans_unet.py), in eval mode. Its absolute
+    imports resolve through synthetic `models` and `utils` packages over the
+    reference tree; its BatchNorms use the batch's statistics."""
+    base = os.path.join(reference_root, "TransUnet")
+    for name in ("models", "models.segmentation", "models.encoders", "models.decoders",
+                 "models.blocks", "utils"):
+        _synthetic_package(name, os.path.join(base, *name.split(".")))
+    _install_positional_encodings_shim()
+    tu = importlib.import_module("models.segmentation.trans_unet")
+    model = tu.TransUNet(input_shape=tuple(input_shape), num_classes=num_classes,
+                         num_channels_list=list(num_channels_list),
+                         patch_size_factor=patch_size_factor)
+    return _batch_stat_batchnorms(model).eval()
+
+
+def load_reference_vtunet_module(reference_root: str = REFERENCE):
+    """The reference's vt_unet.py as a module (mmcv's load_checkpoint, the
+    one mmcv name it uses, is a stand-in that does nothing)."""
+    _extend_timm_shim()
+    if "mmcv" not in sys.modules:
+        mmcv = types.ModuleType("mmcv")
+        runner = types.ModuleType("mmcv.runner")
+        runner.load_checkpoint = lambda *a, **k: None
+        mmcv.runner = runner
+        sys.modules["mmcv"] = mmcv
+        sys.modules["mmcv.runner"] = runner
+    base = os.path.join(reference_root, "VT-Unet", "vtunet")
+    return _load_module("_ref_vtunet", os.path.join(base, "vt_unet.py"))
+
+
+def load_reference_vtunet(reference_root: str = REFERENCE, img_size=(128, 64, 64),
+                          in_chans: int = 2, num_classes: int = 8, embed_dim: int = 48,
+                          window_size=(7, 7, 7)):
+    """The reference SwinTransformerSys3D in the VTUNet wrapper's
+    configuration, in eval mode. Its PatchExpand_Up pins the token depth to
+    32, so img_size's D must be 128; H, W and embed_dim may shrink."""
+    mod = load_reference_vtunet_module(reference_root)
+    model = mod.SwinTransformerSys3D(
+        img_size=tuple(img_size), patch_size=(4, 4, 4), in_chans=in_chans,
+        num_classes=num_classes, embed_dim=embed_dim, depths=[2, 2, 2, 1],
+        depths_decoder=[1, 2, 2, 2], num_heads=[3, 6, 12, 24], window_size=tuple(window_size),
+        mlp_ratio=4.0, qkv_bias=True, qk_scale=None, drop_rate=0.0, attn_drop_rate=0.0,
+        drop_path_rate=0.1, patch_norm=True, use_checkpoint=False, frozen_stages=-1,
+        final_upsample="expand_first")
+    return model.eval()

@@ -133,6 +133,11 @@ class DataLoader:
     def __len__(self):
         return -(-len(self.dataset) // self.batch_size)
 
+    def peek_shape(self):
+        """[B, C, D, H, W] of a full global batch, from the first sample
+        (without iterating)."""
+        return (self.batch_size,) + tuple(np.asarray(self.dataset[0]["image"]).shape)
+
     def _index_batches(self):
         order = np.arange(len(self.dataset))
         if self.shuffle:

@@ -1,10 +1,14 @@
 """NIfTI-1 reader and writer.
 
 The port's own copy of `micformer_tpu/data/nifti.py` (`read_nifti`,
-`write_nifti`). Arrays are in (z, y, x) index order, the SimpleITK
-convention of the reference's data loaders. `read_nifti(..., dtype=float32)`
-reads through the native library (`micformer_tpu_torch.native`) when it is
-built, as the JAX package's does.
+`load_nii`, `write_nifti`). Arrays are in (z, y, x) index order, the
+SimpleITK convention of the reference's data loaders. `read_nifti(...,
+dtype=float32)` reads through the native library
+(`micformer_tpu_torch.native`) when it is built, as the JAX package's does.
+`write_nifti` gzips at level 1, nibabel's default: the gzip module's
+default, 9, which the JAX package's writer takes, makes a segmentation's
+file a little smaller at many times the host time. The bytes read back are
+the same.
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ class NiftiHeader:
 def _open_maybe_gzip(path, mode="rb"):
     path = str(path)
     if path.endswith(".gz"):
-        return gzip.open(path, mode)
+        return gzip.open(path, mode, compresslevel=1)
     return open(path, mode)
 
 
@@ -161,6 +165,12 @@ def read_nifti(path, dtype=None, with_header=False):
     if with_header:
         return arr, hdr
     return arr
+
+
+def load_nii(path):
+    """The volume at `path` as read_nifti returns it, in (z, y, x) order (the
+    reference's loader's name)."""
+    return read_nifti(path)
 
 
 def write_nifti(path, array, affine=None, dtype=None):

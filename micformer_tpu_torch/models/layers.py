@@ -6,7 +6,8 @@ W-packed forms are TPU layouts of the same math; this is the plain math.
 
 The window blocks work on channels-last [B, D, H, W, C] tensors: Mlp,
 Dropout, DropPath, WindowAttention3D (self and cross; relative-position
-bias, masks and the SwinUnet3D window scramble for the zoo), SwinBlock3D
+bias, with its inference cache `materialize_rpe_cache`, masks and the
+SwinUnet3D window scramble for the zoo), SwinBlock3D
 (shifted or not), PatchEmbed3D, PatchMergingConv, PatchExpandConv, the Swin
 merges and expands PatchMergingLinear, PatchExpandLinear and
 FinalPatchExpand, and pad_to_multiple. Their convolutions take the
@@ -161,33 +162,104 @@ class DropPath(nn.Module):
         return _keep(x, self.rate, (1,) * (x.dim() - 1), generator)
 
 
+# table gathers of the rel-pos biases ("gathered"), and the biases a forward
+# read from a module's cache instead ("cached")
+RPE_COUNTS: dict[str, int] = {"gathered": 0, "cached": 0}
+# set while materialize_rpe_cache's forward runs: each gather is then kept
+_MATERIALIZING = contextvars.ContextVar("materialize_rpe_cache", default=False)
+
+
+def _clear_rpe_cache_on_load(module, incompatible_keys):
+    module.rpe_cache = None
+    module.rpe_cache_key = None
+
+
 def add_rel_pos_table(module: nn.Module, window_size, num_heads: int) -> None:
     """Give `module` a relative-position bias table for `window_size`,
     `rel_pos_bias_table` [(2wd-1)(2wh-1)(2ww-1), heads] (the flax leaf's name
     and shape), and its index as a buffer that no state_dict holds.
     `bias_heads`, the table's columns a forward gathers, is all of them but
-    under tensor parallelism (`parallel/tensor.py`: the rank's heads)."""
+    under tensor parallelism (`parallel/tensor.py`: the rank's heads). The
+    inference cache of the gathered bias, `rpe_cache`, is a buffer that no
+    state_dict holds either, emptied whenever the module's weights are loaded
+    (`load_state_dict` of it or of any module that holds it)."""
     wd, wh, ww = module.table_window = tuple(window_size)
     module.bias_heads = slice(None)
     module.rel_pos_bias_table = nn.Parameter(
         torch.zeros((2 * wd - 1) * (2 * wh - 1) * (2 * ww - 1), num_heads))
     module.register_buffer("rel_pos_index", torch.from_numpy(
         relative_position_index(module.table_window).astype(np.int64)), persistent=False)
+    module.register_buffer("rpe_cache", None, persistent=False)
+    module.rpe_cache_key = None
+    module.register_load_state_dict_post_hook(_clear_rpe_cache_on_load)
+
+
+def rel_pos_bias_cached(module: nn.Module, T: int | None = None) -> torch.Tensor:
+    """[h, T, T]: `module`'s table gathered at the top-left T x T block of
+    its window's relative_position_index (T None: the whole window), the
+    gather of the JAX layer's `rel_pos_bias_cached`.
+
+    At inference the bias is constant for a checkpoint: after
+    `materialize_rpe_cache` a forward under `torch.no_grad()` or
+    `torch.inference_mode()` reads the module's cached bias instead of
+    gathering. The cache is keyed by T, the gathered heads and the table's
+    version counter, so a forward at another window, or after the table was
+    written in place, gathers as before. A forward with grad enabled always
+    gathers: a cached bias is a constant, and a table trained through it
+    would silently receive no gradient."""
+    T = len(module.rel_pos_index) if T is None else T
+    table = module.rel_pos_bias_table
+    key = (T, module.bias_heads, table._version)
+    if (module.rpe_cache is not None and not torch.is_grad_enabled()
+            and module.rpe_cache_key == key):
+        RPE_COUNTS["cached"] += 1
+        return module.rpe_cache
+    RPE_COUNTS["gathered"] += 1
+    idx = module.rel_pos_index[:T, :T].reshape(-1)
+    bias = table[:, module.bias_heads][idx].reshape(T, T, -1).permute(2, 0, 1)
+    if _MATERIALIZING.get():
+        module.rpe_cache, module.rpe_cache_key = bias.detach().contiguous(), key
+    return bias
 
 
 def rel_pos_bias(module: nn.Module, window_size) -> torch.Tensor:
-    """[h, T, T]: `module`'s table gathered each call at its window's
-    relative_position_index, as the JAX layer gathers it (no cache). The
-    call's (clamped) window must be the table's: the JAX layer's table takes
-    the window clamped to the input it was initialised on, and an input that
-    clamps otherwise fails there on the table's shape."""
+    """[h, T, T]: `module`'s bias at its window's whole
+    relative_position_index (`rel_pos_bias_cached`). The call's (clamped)
+    window must be the table's: the JAX layer's table takes the window
+    clamped to the input it was initialised on, and an input that clamps
+    otherwise fails there on the table's shape."""
     if tuple(window_size) != module.table_window:
         raise ValueError(f"window {tuple(window_size)} of this input, but the bias table "
                          f"is for window {module.table_window}: build the model with the "
                          "input_size it is called at")
-    T = len(module.rel_pos_index)
-    table = module.rel_pos_bias_table[:, module.bias_heads]
-    return table[module.rel_pos_index.reshape(-1)].reshape(T, T, -1).permute(2, 0, 1)
+    return rel_pos_bias_cached(module)
+
+
+def materialize_rpe_cache(model: nn.Module, *example_inputs, **kwargs) -> nn.Module:
+    """Gather every relative-position bias of `model` once, for inference
+    at the shape of `example_inputs`: one forward under no_grad in which
+    each biased module keeps its gathered [h, T, T] bias (`rpe_cache`).
+    Returns `model`; a model without bias tables is left as it is. The
+    cache is for the windows of that shape (windows clamp to the input); a
+    forward at another shape gathers as before. INFERENCE ONLY: training
+    never reads the cache (`rel_pos_bias_cached`), and loading weights
+    empties it."""
+    if not any(getattr(m, "rel_pos_bias_table", None) is not None for m in model.modules()):
+        return model
+    token = _MATERIALIZING.set(True)
+    try:
+        with torch.no_grad():
+            model(*example_inputs, **kwargs)
+    finally:
+        _MATERIALIZING.reset(token)
+    return model
+
+
+def clear_rpe_cache(model: nn.Module) -> None:
+    """Empty the rel-pos cache of every module of `model`."""
+    for m in model.modules():
+        if getattr(m, "rpe_cache", None) is not None:
+            _clear_rpe_cache_on_load(m, None)
 
 
 class WindowAttention3D(nn.Module):
@@ -198,7 +270,8 @@ class WindowAttention3D(nn.Module):
     half). Projections are heads · head_dim wide (dim when head_dim is None).
     rel_pos_bias: a learned table
     [(2wd-1)(2wh-1)(2ww-1), heads] for `window_size`, gathered each forward
-    by relative_position_index(window_size) (`rel_pos_bias`). fused_attention selects
+    by relative_position_index(window_size) (`rel_pos_bias`; at inference
+    read from its cache after `materialize_rpe_cache`). fused_attention selects
     `multi_head_attention(..., fused=True)`, the fused kernel K2 on the
     card."""
 

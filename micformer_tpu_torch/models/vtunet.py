@@ -34,7 +34,7 @@ import torch.nn as nn
 from micformer_tpu_torch import registry
 from micformer_tpu_torch.models.layers import (
     LN_EPS, DropPath, FinalPatchExpand, Mlp, PatchEmbed3D, PatchExpandLinear,
-    PatchMergingLinear, add_rel_pos_table, pad_to_multiple,
+    PatchMergingLinear, add_rel_pos_table, pad_to_multiple, rel_pos_bias_cached,
 )
 from micformer_tpu_torch.ops.attention import merge_heads, multi_head_attention, split_heads
 from micformer_tpu_torch.ops.pe import sinusoidal_pe_3d
@@ -82,10 +82,10 @@ def vt_rel_pos_bias(module: nn.Module, T: int) -> torch.Tensor:
     its table and index are for the window it was built with (7³), and a
     window clamped to a smaller grid still takes `index[:T, :T]`, rows that
     are not that window's relative positions (the weights were trained so).
-    Where the window does not clamp, this is the standard gather."""
-    idx = module.rel_pos_index[:T, :T].reshape(-1)
-    table = module.rel_pos_bias_table[:, module.bias_heads]
-    return table[idx].reshape(T, T, -1).permute(2, 0, 1)
+    Where the window does not clamp, this is the standard gather. At
+    inference it is read from the module's cache (`rel_pos_bias_cached`),
+    whose key holds T, so the quirk's rows are what the cache keeps."""
+    return rel_pos_bias_cached(module, T)
 
 
 class VTWindowAttention(nn.Module):

@@ -107,6 +107,19 @@ def shifted_window_region_ids(dims, window_size, shift_size) -> np.ndarray | Non
 
 
 @functools.lru_cache(maxsize=None)
+def shifted_window_mask(dims, window_size, shift_size) -> np.ndarray | None:
+    """The pairwise form of `shifted_window_region_ids`: float32
+    [nWindows, T, T], 0 where two tokens share a pre-shift region and -100
+    elsewhere (the Swin convention), or None when no axis is shifted. The
+    attention takes the region ids; this is the mask they stand for.
+    Cached: callers must not write into the result."""
+    ids = shifted_window_region_ids(dims, window_size, shift_size)
+    if ids is None:
+        return None
+    return np.where(ids[:, None, :] != ids[:, :, None], -100.0, 0.0).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
 def relative_position_index(window_size) -> np.ndarray:
     """int32 [T, T] index into a ((2wd-1)(2wh-1)(2ww-1),) bias table: per-axis
     coordinate deltas shifted to be nonnegative, mixed-radix flattened.

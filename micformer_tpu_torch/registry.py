@@ -83,6 +83,13 @@ def _lookup(name: str):
     return _REGISTRY[name]
 
 
+def available() -> list[str]:
+    """The registered model names, sorted (the model zoo is imported)."""
+    from micformer_tpu_torch import models  # noqa: F401  (registers)
+
+    return sorted(_REGISTRY)
+
+
 def defaults(name: str) -> dict:
     """The kwargs `name` was registered with. A model whose parameter shapes
     follow the input it is built for registers `input_size=None`, and the

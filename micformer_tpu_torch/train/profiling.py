@@ -8,7 +8,10 @@ Counterpart of `micformer_tpu/train/profiling.py` on PyTorch:
   - Throughput: steps and items a second, the card synchronised before the
     clock is read;
   - time_fn: (mean, p50) seconds of fn(*args), on the card between CUDA
-    events, else on the host clock.
+    events, else on the host clock;
+  - enable_nan_debugging: every op whose floating output holds a NaN
+    raises FloatingPointError naming the op, forward and backward (JAX's
+    jax_debug_nans). For debugging runs: each op's output is read back.
 """
 
 from __future__ import annotations
@@ -100,3 +103,41 @@ def time_fn(fn, *args, warmup: int = 1, reps: int = 10):
     ts = np.asarray(ts)
     return float(ts.mean()), float(np.percentile(ts, 50))
 
+
+_NAN_MODE = None
+
+
+def _nan_check_mode():
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class NanCheck(TorchDispatchMode):
+        """Runs each op, then raises if a floating output holds a NaN."""
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in tree_leaves(out):
+                if (isinstance(t, torch.Tensor) and t.device.type != "meta"
+                        and (t.is_floating_point() or t.is_complex())
+                        and bool(torch.isnan(t).any())):
+                    raise FloatingPointError(f"NaN in the output of {func}")
+            return out
+
+    return NanCheck()
+
+
+def enable_nan_debugging(enable: bool = True):
+    """Raise FloatingPointError, naming the op, at the first op whose
+    floating output holds a NaN (JAX's `jax_debug_nans`): a dispatch mode
+    over every op of the calling thread and of the autograd engine's
+    backward, which inherits it, so a NaN made in a backward is caught where
+    it is made too (torch.autograd.set_detect_anomaly sees the backward
+    only). enable=False restores normal dispatch. Expensive: each output is
+    checked on the host."""
+    global _NAN_MODE
+    if enable and _NAN_MODE is None:
+        _NAN_MODE = _nan_check_mode()
+        _NAN_MODE.__enter__()
+    elif not enable and _NAN_MODE is not None:
+        mode, _NAN_MODE = _NAN_MODE, None
+        mode.__exit__(None, None, None)

@@ -5,6 +5,8 @@ the port's trainer writes: `events.jsonl` ({tag, value, step} records of
 `train/logging.py`) and `log.jsonl` (flat per-epoch dicts of
 `train/trainer.py`).
   - get_run_data(run_dir): {metric: [(step, value), ...]};
+  - get_run_dataframe(run_dir): the same as a pandas DataFrame, one row a
+    step, or None without pandas;
   - export_runs_csv(run_dirs, out_csv): many runs in one long-format CSV;
   - to_wandb(run_dir): a run's history replayed into wandb when the package
     is importable, else None.
@@ -43,6 +45,21 @@ def get_run_data(run_dir: str) -> dict:
                 continue
             series.setdefault(k, []).append((step, float(v)))
     return series
+
+
+def get_run_dataframe(run_dir: str):
+    """The run history as a pandas DataFrame: a "step" column and one column
+    a metric, one row a step in step order; None when pandas is not
+    importable."""
+    try:
+        import pandas as pd
+    except ImportError:
+        return None
+    rows: dict = {}
+    for metric, pts in get_run_data(run_dir).items():
+        for step, v in pts:
+            rows.setdefault(step, {})[metric] = v
+    return pd.DataFrame([{"step": s, **m} for s, m in sorted(rows.items())])
 
 
 def export_runs_csv(run_dirs, out_csv: str) -> str:

@@ -203,7 +203,7 @@ class Trainer:
         self.ckpt = CheckpointManager(cfg.run_dir, keep_best_k=cfg.keep_best_k)
         os.makedirs(cfg.run_dir, exist_ok=True)
         self._log_path = os.path.join(cfg.run_dir, "log.jsonl")
-        self.writer = MetricsWriter(cfg.run_dir)
+        self.writer = MetricsWriter(cfg.run_dir, tensorboard=False)   # JSONL only
         self.history: list[dict] = []
 
     def _wrap(self, model):

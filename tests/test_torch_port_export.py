@@ -169,7 +169,7 @@ def test_export_refuses_a_kernel_traced_as_plain_math(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="traced as plain math"):
         aot_export.export_artifact(str(tmp_path / "art"), _model(), target_shape=SHAPE,
                                    roi=ROI, sw_batch_size=2)
-    assert not (tmp_path / "art" / "module.pt2").exists()
+    assert not (tmp_path / "art").exists()
 
 
 def test_type_hints_are_computed_once_a_class_during_a_load_only():
