@@ -1,0 +1,8 @@
+"""device_idle.infer (%): the share of the traced stretch of serving calls in
+which no kernel, copy or set ran on the device."""
+
+
+def read(ctx):
+    if ctx.stretch_volumes == 0 or ctx.stretch_s <= 0 or not ctx.events:
+        return None
+    return 100.0 * (1.0 - ctx.busy_s / ctx.stretch_s)
