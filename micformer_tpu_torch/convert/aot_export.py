@@ -36,6 +36,7 @@ import torch
 import torch.nn as nn
 
 from micformer_tpu_torch.infer.sliding_window import sliding_window_inference
+from micformer_tpu_torch.tracing import span
 
 VERSION = 2
 # the devices an artifact can hold a program for
@@ -47,7 +48,8 @@ OPS = ("window_attention", "fused_window_attention", "dw_conv3")
 class InferenceModule(nn.Module):
     """The serving program: volume [B, 2, D, H, W] f32 -> seg [B, D, H, W]
     uint8 (argmax) or logits [B, C, D, H, W] f32, the composition of
-    cli/serve.py."""
+    cli/serve.py. A call is the span `serve.infer`, its argmax
+    `serve.argmax` (`tracing.span`)."""
 
     def __init__(self, model, *, roi, num_classes=8, overlap=0.5, sw_batch_size=4,
                  step_mode="monai", mirror_tta=False, argmax=True):
@@ -72,13 +74,15 @@ class InferenceModule(nn.Module):
         # nodes that export then splits the graph at and inlines again
         swi = sliding_window_inference if torch.is_grad_enabled() \
             else sliding_window_inference.__wrapped__
-        logits = swi(
-            volume, self.roi, self.predictor, num_classes=self.num_classes,
-            overlap=self.overlap, sw_batch_size=self.sw_batch_size,
-            step_mode=self.step_mode, mirror_tta=self.mirror_tta)
-        if self.argmax:
-            return logits.argmax(dim=1).to(torch.uint8)
-        return logits
+        with span("serve.infer"):
+            logits = swi(
+                volume, self.roi, self.predictor, num_classes=self.num_classes,
+                overlap=self.overlap, sw_batch_size=self.sw_batch_size,
+                step_mode=self.step_mode, mirror_tta=self.mirror_tta)
+            if not self.argmax:
+                return logits
+            with span("serve.argmax"):
+                return logits.argmax(dim=1).to(torch.uint8)
 
 
 def build_inference_fn(model, *, roi, num_classes=8, overlap=0.5, sw_batch_size=4,

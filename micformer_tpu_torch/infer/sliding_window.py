@@ -19,6 +19,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from micformer_tpu_torch.tracing import span
+
 
 def compute_steps_monai(image_size, roi_size, overlap: float = 0.5):
     """MONAI placement: interval roi*(1-overlap), last start clamped to
@@ -153,53 +155,58 @@ def sliding_window_inference(
     roi = tuple(roi_size)
     dev = volume.device
 
-    pads = [max(r - s, 0) for r, s in zip(roi, spatial)]
-    if any(pads):
-        cfg = []
-        for p in reversed(pads):
-            cfg += [p // 2, p - p // 2]
-        volume = F.pad(volume, cfg)
-    padded = tuple(volume.shape[2:])
+    with span("sw.prepare"):
+        pads = [max(r - s, 0) for r, s in zip(roi, spatial)]
+        if any(pads):
+            cfg = []
+            for p in reversed(pads):
+                cfg += [p // 2, p - p // 2]
+            volume = F.pad(volume, cfg)
+        padded = tuple(volume.shape[2:])
 
-    coords = _tile_starts(padded, roi, step_mode, overlap, step_size)
-    n_tiles = coords.shape[0]
-    if mirror_tta:
-        batched = (os.environ.get("MICFORMER_TTA_BATCHED", "0") == "1"
-                   if tta_batched is None else tta_batched)
-        wrap = _batched_tta_predictor if batched else _mirror_tta_predictor
-        predictor = wrap(predictor, mirror_axes)
+        coords = _tile_starts(padded, roi, step_mode, overlap, step_size)
+        n_tiles = coords.shape[0]
+        if mirror_tta:
+            batched = (os.environ.get("MICFORMER_TTA_BATCHED", "0") == "1"
+                       if tta_batched is None else tta_batched)
+            wrap = _batched_tta_predictor if batched else _mirror_tta_predictor
+            predictor = wrap(predictor, mirror_axes)
 
-    if blend == "gaussian":
-        wmap = torch.from_numpy(gaussian_importance_map(roi, sigma_scale)).to(dev)
-    else:
-        wmap = torch.ones(roi, dtype=torch.float32, device=dev)
+        if blend == "gaussian":
+            wmap = torch.from_numpy(gaussian_importance_map(roi, sigma_scale)).to(dev)
+        else:
+            wmap = torch.ones(roi, dtype=torch.float32, device=dev)
 
-    # the last chunk is filled up with copies of tile 0 that get weight 0,
-    # so every predictor call sees the same batch
-    chunk = max(1, sw_batch_size)
-    n_chunks = -(-n_tiles // chunk)
-    pad_tiles = n_chunks * chunk - n_tiles
-    coords = np.concatenate([coords, np.repeat(coords[:1], pad_tiles, 0)], 0)
-    valid = np.arange(n_chunks * chunk) < n_tiles
+        # the last chunk is filled up with copies of tile 0 that get weight 0,
+        # so every predictor call sees the same batch
+        chunk = max(1, sw_batch_size)
+        n_chunks = -(-n_tiles // chunk)
+        pad_tiles = n_chunks * chunk - n_tiles
+        coords = np.concatenate([coords, np.repeat(coords[:1], pad_tiles, 0)], 0)
+        valid = np.arange(n_chunks * chunk) < n_tiles
 
-    logit_acc = torch.zeros((B, num_classes) + padded, dtype=torch.float32, device=dev)
-    weight_acc = torch.zeros((1, 1) + padded, dtype=torch.float32, device=dev)
+        logit_acc = torch.zeros((B, num_classes) + padded, dtype=torch.float32, device=dev)
+        weight_acc = torch.zeros((1, 1) + padded, dtype=torch.float32, device=dev)
     for c in range(n_chunks):
         starts = coords[c * chunk:(c + 1) * chunk]
-        tiles = [volume[:, :, z:z + roi[0], y:y + roi[1], x:x + roi[2]]
-                 for z, y, x in starts]
-        preds = predictor(torch.cat(tiles, 0)).float()
-        preds = preds.reshape((chunk, B, num_classes) + roi)
-        for j, (z, y, x) in enumerate(starts):
-            if not valid[c * chunk + j]:
-                continue
-            sl = (slice(None), slice(None), slice(z, z + roi[0]),
-                  slice(y, y + roi[1]), slice(x, x + roi[2]))
-            logit_acc[sl] += preds[j] * wmap           # in place
-            weight_acc[sl] += wmap
+        with span("sw.gather"):
+            tiles = torch.cat([volume[:, :, z:z + roi[0], y:y + roi[1], x:x + roi[2]]
+                               for z, y, x in starts], 0)
+        with span("sw.forward"):
+            preds = predictor(tiles)
+        with span("sw.blend"):
+            preds = preds.float().reshape((chunk, B, num_classes) + roi)
+            for j, (z, y, x) in enumerate(starts):
+                if not valid[c * chunk + j]:
+                    continue
+                sl = (slice(None), slice(None), slice(z, z + roi[0]),
+                      slice(y, y + roi[1]), slice(x, x + roi[2]))
+                logit_acc[sl] += preds[j] * wmap           # in place
+                weight_acc[sl] += wmap
 
-    out = logit_acc / weight_acc
-    if any(pads):
-        out = out[(slice(None), slice(None)) + tuple(
-            slice(p // 2, p // 2 + s) for p, s in zip(pads, spatial))]
+    with span("sw.normalize"):
+        out = logit_acc / weight_acc
+        if any(pads):
+            out = out[(slice(None), slice(None)) + tuple(
+                slice(p // 2, p // 2 + s) for p, s in zip(pads, spatial))]
     return out

@@ -27,9 +27,10 @@ the shape, dtype and alignment alone: "tma" (TMA boxes of halo'd planes),
 "volume" (one TMA box of whole volumes when D, H, W <= 16) and "cp_async"
 (cp.async copies where TMA cannot describe x). `_dw_plan` gives the route's
 launch geometry, which the C entry points check; each launch adds one to
-`ROUTES[kernel][route]` beside `LAUNCHES[kernel]`. A route the inputs cannot
-take makes the launch fail and the wrapper raise; nothing falls back to the
-plain versions.
+`ROUTES[kernel][route]` beside `LAUNCHES[kernel]`, inside the span
+`k3.forward.<route>` or `k3.wgrad.<route>` of a profiler's trace (`SPANS`).
+A route the inputs cannot take makes the launch fail and the wrapper raise;
+nothing falls back to the plain versions.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from micformer_tpu_torch.kernels import CALLS, LAUNCHES, _build
+from micformer_tpu_torch.tracing import span
 
 KERNEL_SIZES = (3, 5)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -58,6 +60,13 @@ _THREADS = 256
 _VW = 8                     # W-adjacent outputs per thread (csrc/dw_stage.cuh kVW)
 _VOLUME_MAX = 16            # the volume route takes D, H, W up to this
 _VOLUME_SMEM = 96 * 1024    # volumes per block are cut to fit this
+
+
+# the kernels' spans by route (`tracing.span`): from the route's choice to
+# the launch; K3's dx is a forward launch (an unknown route's span is the
+# bare kernel's, and the plan raises)
+SPANS: dict[str, dict[str, str]] = {kind: {r: f"k3.{kind}.{r}" for r in ROUTE_NAMES}
+                                    for kind in ("forward", "wgrad")}
 
 
 def reset_routes() -> None:
@@ -263,23 +272,24 @@ def _forward(x, w, bias, route: str | None = None):
         raise ValueError(f"dw_conv3: unsupported device {x.device}")
     B, C, D, H, W = x.shape
     k = w.shape[-1]
-    out = torch.empty_like(x)
-    if out.numel() == 0:
-        return out
+    if x.numel() == 0:
+        return torch.empty_like(x)
     route = route or _dw_route(x.shape, x.dtype, k, x.data_ptr())
-    plan = _dw_plan(x.shape, x.dtype, k, route)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _forward_fn()(x.data_ptr(), w.data_ptr(),
-                            0 if bias is None else bias.data_ptr(), out.data_ptr(),
-                            B * C, C, D, H, W, k, _DTYPE_CODES[x.dtype],
-                            ROUTE_NAMES.index(route), *plan, stream)
-    if err != 0:
-        raise RuntimeError(f"dw_conv3: kernel launch failed on route {route} "
-                           f"(cudaError {err})")
-    LAUNCHES["dw_conv3"] += 1
-    ROUTES["dw_conv3"][route] += 1
-    return out
+    with span(SPANS["forward"].get(route, "k3.forward")):
+        out = torch.empty_like(x)
+        plan = _dw_plan(x.shape, x.dtype, k, route)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = _forward_fn()(x.data_ptr(), w.data_ptr(),
+                                0 if bias is None else bias.data_ptr(), out.data_ptr(),
+                                B * C, C, D, H, W, k, _DTYPE_CODES[x.dtype],
+                                ROUTE_NAMES.index(route), *plan, stream)
+        if err != 0:
+            raise RuntimeError(f"dw_conv3: kernel launch failed on route {route} "
+                               f"(cudaError {err})")
+        LAUNCHES["dw_conv3"] += 1
+        ROUTES["dw_conv3"][route] += 1
+        return out
 
 
 def _check_grad(x, g):
@@ -316,29 +326,31 @@ def _wgrad(x, g, k: int, route: str | None = None):
     if x.device.type != "cuda":
         raise ValueError(f"dw_conv3_wgrad: unsupported device {x.device}")
     B, C, D, H, W = x.shape
-    dw = torch.zeros((C, 1, k, k, k), dtype=torch.float32, device=x.device)
-    db = torch.zeros((C,), dtype=torch.float32, device=x.device)
     if x.numel() == 0:
-        return dw, db
+        return (torch.zeros((C, 1, k, k, k), dtype=torch.float32, device=x.device),
+                torch.zeros((C,), dtype=torch.float32, device=x.device))
     route = route or _dw_route(x.shape, x.dtype, k, x.data_ptr(), g.data_ptr())
-    args = (B * C, C, D, H, W, k, _DTYPE_CODES[x.dtype], ROUTE_NAMES.index(route),
-            *_wgrad_plan(x.shape, x.dtype, k, route))
-    size, fn = _wgrad_fns()
-    n = size(*args)
-    if n < 0:
-        raise RuntimeError(f"dw_conv3_wgrad: shape {tuple(x.shape)}, k {k} not taken "
-                           f"on route {route}")
-    scratch = torch.empty((n,), dtype=torch.float64, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), g.data_ptr(), dw.data_ptr(), db.data_ptr(),
-                 scratch.data_ptr(), *args, stream)
-    if err != 0:
-        raise RuntimeError(f"dw_conv3_wgrad: kernel launch failed on route {route} "
-                           f"(cudaError {err})")
-    LAUNCHES["dw_conv3_wgrad"] += 1
-    ROUTES["dw_conv3_wgrad"][route] += 1
-    return dw, db
+    with span(SPANS["wgrad"].get(route, "k3.wgrad")):
+        dw = torch.zeros((C, 1, k, k, k), dtype=torch.float32, device=x.device)
+        db = torch.zeros((C,), dtype=torch.float32, device=x.device)
+        args = (B * C, C, D, H, W, k, _DTYPE_CODES[x.dtype], ROUTE_NAMES.index(route),
+                *_wgrad_plan(x.shape, x.dtype, k, route))
+        size, fn = _wgrad_fns()
+        n = size(*args)
+        if n < 0:
+            raise RuntimeError(f"dw_conv3_wgrad: shape {tuple(x.shape)}, k {k} not taken "
+                               f"on route {route}")
+        scratch = torch.empty((n,), dtype=torch.float64, device=x.device)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = fn(x.data_ptr(), g.data_ptr(), dw.data_ptr(), db.data_ptr(),
+                     scratch.data_ptr(), *args, stream)
+        if err != 0:
+            raise RuntimeError(f"dw_conv3_wgrad: kernel launch failed on route {route} "
+                               f"(cudaError {err})")
+        LAUNCHES["dw_conv3_wgrad"] += 1
+        ROUTES["dw_conv3_wgrad"][route] += 1
+        return dw, db
 
 
 def dw_conv3_backward(x, w, g, need_dx: bool = True, need_dwb: bool = True):

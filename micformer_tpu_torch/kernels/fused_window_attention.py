@@ -23,7 +23,8 @@ MicFormer) or "ffma" (everything else of the contract). A d outside the
 compiled widths 8, 16, 32, 64, 128 is staged in the next one, its tail as
 zeros that are never stored. `_fused_plan` gives the tile plan, which the C
 entries check and launch one block a tile; each launch adds one to
-`ROUTES[kernel][route]` beside `LAUNCHES[kernel]`.
+`ROUTES[kernel][route]` beside `LAUNCHES[kernel]`, inside the span
+`k2.forward.<route>` or `k2.backward.<route>` of a profiler's trace (`SPANS`).
 
 For CUDA tensors the wrappers launch their kernels and raise on what a kernel
 or a route does not take; for CPU tensors they compute
@@ -40,10 +41,17 @@ import functools
 import torch
 
 from micformer_tpu_torch.kernels import CALLS, LAUNCHES, _build
+from micformer_tpu_torch.tracing import span
 from micformer_tpu_torch.kernels.window_attention import (
     _ELEMENT_BYTES, DTYPE_CODES, ROUTE_NAMES, ROUTES, _aligned, _attn_plan, _attn_smem, _sms,
     launch_attention_backward,
 )
+
+# the kernels' spans by route (`tracing.span`): from the route's choice to
+# the launch (an unknown route's span is the bare kernel's, and the plan
+# raises)
+SPANS: dict[str, dict[str, str]] = {kind: {r: f"k2.{kind}.{r}" for r in ROUTE_NAMES}
+                                    for kind in ("forward", "backward")}
 
 BLOCK_ROWS = 128
 MAX_T = 32
@@ -186,21 +194,22 @@ def _forward(q, k, v, scale, route=None):
     if N * h == 0:
         return out
     route = route or _fused_route(T, d, q.dtype, _fused_aligned(d, q, k, v, out))
-    plan = _fused_plan(N, T, h, d, q.dtype, route, False, _sms(q.device))
-    s = d ** -0.5 if scale is None else float(scale)
-    # each as (window, token, head) strides
-    strides = [x.stride()[i] for x in (q, k, v, out) for i in (0, 2, 1)]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _forward_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                            N, h, T, d, (ctypes.c_longlong * 12)(*strides), s,
-                            DTYPE_CODES[q.dtype], ROUTE_NAMES.index(route), *plan, stream)
-    if err != 0:
-        raise RuntimeError(f"fused_window_attention: kernel launch failed on route {route} "
-                           f"(cudaError {err})")
-    LAUNCHES["fused_window_attention"] += 1
-    ROUTES["fused_window_attention"][route] += 1
-    return out
+    with span(SPANS["forward"].get(route, "k2.forward")):
+        plan = _fused_plan(N, T, h, d, q.dtype, route, False, _sms(q.device))
+        s = d ** -0.5 if scale is None else float(scale)
+        # each as (window, token, head) strides
+        strides = [x.stride()[i] for x in (q, k, v, out) for i in (0, 2, 1)]
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = _forward_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                N, h, T, d, (ctypes.c_longlong * 12)(*strides), s,
+                                DTYPE_CODES[q.dtype], ROUTE_NAMES.index(route), *plan, stream)
+        if err != 0:
+            raise RuntimeError(f"fused_window_attention: kernel launch failed on route "
+                               f"{route} (cudaError {err})")
+        LAUNCHES["fused_window_attention"] += 1
+        ROUTES["fused_window_attention"][route] += 1
+        return out
 
 
 def fused_window_attention_backward(q, k, v, g, scale=None):
@@ -230,15 +239,16 @@ def _backward(q, k, v, g, scale, route=None):
         return dq, dk, dv
     ts = (q, k, v, g, dq, dk, dv)
     route = route or _fused_route(T, d, q.dtype, _fused_aligned(d, *ts))
-    plan = _fused_plan(N, T, h, d, q.dtype, route, True, _sms(q.device))
-    s = d ** -0.5 if scale is None else float(scale)
-    # the kernel reads [N, T, h, d] views: the transposes are free
-    launch_attention_backward("fused_window_attention_backward",
-                              *(x.transpose(1, 2) for x in ts), s,
-                              (ROUTE_NAMES.index(route), *plan))
-    LAUNCHES["fused_window_attention_backward"] += 1
-    ROUTES["fused_window_attention_backward"][route] += 1
-    return dq, dk, dv
+    with span(SPANS["backward"].get(route, "k2.backward")):
+        plan = _fused_plan(N, T, h, d, q.dtype, route, True, _sms(q.device))
+        s = d ** -0.5 if scale is None else float(scale)
+        # the kernel reads [N, T, h, d] views: the transposes are free
+        launch_attention_backward("fused_window_attention_backward",
+                                  *(x.transpose(1, 2) for x in ts), s,
+                                  (ROUTE_NAMES.index(route), *plan))
+        LAUNCHES["fused_window_attention_backward"] += 1
+        ROUTES["fused_window_attention_backward"][route] += 1
+        return dq, dk, dv
 
 
 @torch.library.custom_op("micformer_tpu_torch::fused_window_attention", mutates_args=())

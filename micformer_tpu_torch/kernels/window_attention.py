@@ -21,9 +21,10 @@ alignment alone: "mma" (tensor-core mma.sync products; bf16, Tq = Tk = 8,
 d a multiple of 16, every row 16-byte aligned: the MicFormer paths) or
 "ffma" (f32 products on the CUDA cores: everything else). `_attn_plan` gives
 the tile plan, which the C entry points check and launch one block a tile;
-each launch adds one to `ROUTES[kernel][route]` beside `LAUNCHES[kernel]`. A route the inputs
-cannot take makes the launch fail and the wrapper raise; nothing falls back
-to the plain versions. The fused window attention K2
+each launch adds one to `ROUTES[kernel][route]` beside `LAUNCHES[kernel]`,
+inside the span `k1.forward.<route>` or `k1.backward.<route>` of a profiler's
+trace (`SPANS`). A route the inputs cannot take makes the launch fail and
+the wrapper raise; nothing falls back to the plain versions. The fused window attention K2
 (`kernels/fused_window_attention.py`) runs the same tile kernels through
 entries of its own, planned by `_attn_plan(..., fused=True)` and counted in
 `ROUTES` too.
@@ -37,6 +38,7 @@ import functools
 import torch
 
 from micformer_tpu_torch.kernels import CALLS, LAUNCHES, _build
+from micformer_tpu_torch.tracing import span
 
 MAX_T = 16
 HEAD_DIMS = (8, 16, 32, 64)
@@ -58,6 +60,13 @@ _SMEM_BLOCK = 48 * 1024
 _MAX_WARPS = 4
 _WARP_TILE_BYTES = 1024     # backward mma route: a warp's P and dS matrices
 _PAIRS = {False: 12, True: 6}   # forward, backward
+
+
+# the kernels' spans by route (`tracing.span`): from the route's choice to
+# the launch (an unknown route's span is the bare kernel's, and the plan
+# raises)
+SPANS: dict[str, dict[str, str]] = {kind: {r: f"k1.{kind}.{r}" for r in ROUTE_NAMES}
+                                    for kind in ("forward", "backward")}
 
 
 def reset_routes() -> None:
@@ -279,24 +288,25 @@ def _forward(q, k, v, scale, route=None):
     _check_card(q, k)
     N, Tq, h, d = q.shape
     Tk = k.shape[1]
-    rows = [_row_stride(x, n) for x, n in ((q, "q"), (k, "k"), (v, "v"))]
-    out = torch.empty((N, Tq, h, d), dtype=q.dtype, device=q.device)
-    if N == 0:
+    route = route or _attn_route(Tq, Tk, d, q.dtype, True)   # _row_stride checks alignment
+    with span(SPANS["forward"].get(route, "k1.forward")):
+        rows = [_row_stride(x, n) for x, n in ((q, "q"), (k, "k"), (v, "v"))]
+        out = torch.empty((N, Tq, h, d), dtype=q.dtype, device=q.device)
+        if N == 0:
+            return out
+        plan = _attn_plan(N, Tq, Tk, h, d, q.dtype, route, False, _sms(q.device))
+        s = d ** -0.5 if scale is None else float(scale)
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = _forward_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                N, Tq, Tk, h, d, *rows, s, DTYPE_CODES[q.dtype],
+                                ROUTE_NAMES.index(route), *plan, stream)
+        if err != 0:
+            raise RuntimeError(f"window_attention: kernel launch failed on route {route} "
+                               f"(cudaError {err})")
+        LAUNCHES["window_attention"] += 1
+        ROUTES["window_attention"][route] += 1
         return out
-    route = route or _attn_route(Tq, Tk, d, q.dtype, True)   # _row_stride checked alignment
-    plan = _attn_plan(N, Tq, Tk, h, d, q.dtype, route, False, _sms(q.device))
-    s = d ** -0.5 if scale is None else float(scale)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _forward_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                            N, Tq, Tk, h, d, *rows, s, DTYPE_CODES[q.dtype],
-                            ROUTE_NAMES.index(route), *plan, stream)
-    if err != 0:
-        raise RuntimeError(f"window_attention: kernel launch failed on route {route} "
-                           f"(cudaError {err})")
-    LAUNCHES["window_attention"] += 1
-    ROUTES["window_attention"][route] += 1
-    return out
 
 
 def window_attention_backward(q, k, v, g, scale=None):
@@ -327,13 +337,14 @@ def _backward(q, k, v, g, scale, route=None):
     N, Tq, h, d = q.shape
     Tk = k.shape[1]
     route = route or _attn_route(Tq, Tk, d, q.dtype, _aligned(q, k, v, g, dq, dk, dv))
-    plan = _attn_plan(N, Tq, Tk, h, d, q.dtype, route, True, _sms(q.device))
-    s = d ** -0.5 if scale is None else float(scale)
-    launch_attention_backward("window_attention_backward", q, k, v, g, dq, dk, dv, s,
-                              (ROUTE_NAMES.index(route), *plan))
-    LAUNCHES["window_attention_backward"] += 1
-    ROUTES["window_attention_backward"][route] += 1
-    return dq, dk, dv
+    with span(SPANS["backward"].get(route, "k1.backward")):
+        plan = _attn_plan(N, Tq, Tk, h, d, q.dtype, route, True, _sms(q.device))
+        s = d ** -0.5 if scale is None else float(scale)
+        launch_attention_backward("window_attention_backward", q, k, v, g, dq, dk, dv, s,
+                                  (ROUTE_NAMES.index(route), *plan))
+        LAUNCHES["window_attention_backward"] += 1
+        ROUTES["window_attention_backward"][route] += 1
+        return dq, dk, dv
 
 
 @torch.library.custom_op("micformer_tpu_torch::window_attention", mutates_args=())

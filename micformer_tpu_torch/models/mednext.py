@@ -8,6 +8,11 @@ layouts of the same math and are not ported. Submodules carry the flax
 names (`stem`, `enc{s}_{b}`, `down{s}`, `bottleneck_{b}`, `up{s}`,
 `dec{s}_{b}`, `out`, `ds{i}`; `dw`, `norm`, `expand`, `compress`, `res` in a
 block), so `convert.from_flax` maps the flax tree with no renames.
+
+Tracing: the forward's parts are spans of a profiler's trace
+(`tracing.span`): `mednext.stem`, per stage s `mednext.enc<s>` and
+`mednext.down<s>`, `mednext.bottleneck`, per stage `mednext.up<s>` (the up
+block and the skip's add) and `mednext.dec<s>`, then `mednext.head`.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from micformer_tpu_torch import registry
 from micformer_tpu_torch.models.layers import (
     DepthwiseConv3D, InstanceNorm, PointwiseConv, PointwiseTranspose2, zero_dilate,
 )
+from micformer_tpu_torch.tracing import span
 
 # the leading zero plane per spatial axis of the faithful up block
 _LEAD = (1, 0, 1, 0, 1, 0)
@@ -119,32 +125,41 @@ class MedNeXt(nn.Module):
         if deep_supervision:
             for i in range(1, 5):
                 self.add_module(f"ds{i}", PointwiseConv(n * 2 ** i, num_classes))
+        self._spans = {part: [f"mednext.{part}{s}" for s in range(4)]
+                       for part in ("enc", "down", "up", "dec")}
 
     def forward(self, x, generator=None):
         """`generator` is accepted so a trainer calls every model alike;
         MedNeXt has no stochastic layer (the JAX `deterministic` argument is
         unused too)."""
-        bc = self.block_counts
-        x = self.stem(x.to(self.out.weight.dtype))
+        bc, spans = self.block_counts, self._spans
+        with span("mednext.stem"):
+            x = self.stem(x.to(self.out.weight.dtype))
         skips = []
         for s in range(4):
-            for b in range(bc[s]):
-                x = getattr(self, f"enc{s}_{b}")(x)
+            with span(spans["enc"][s]):
+                for b in range(bc[s]):
+                    x = getattr(self, f"enc{s}_{b}")(x)
             skips.append(x)
-            x = getattr(self, f"down{s}")(x)
-        for b in range(bc[4]):
-            x = getattr(self, f"bottleneck_{b}")(x)
-        ds = [self.ds4(x)] if self.deep_supervision else []
+            with span(spans["down"][s]):
+                x = getattr(self, f"down{s}")(x)
+        with span("mednext.bottleneck"):
+            for b in range(bc[4]):
+                x = getattr(self, f"bottleneck_{b}")(x)
+            ds = [self.ds4(x)] if self.deep_supervision else []
         for s in range(4):
-            x = getattr(self, f"up{s}")(x) + skips[3 - s]
-            for b in range(bc[5 + s]):
-                x = getattr(self, f"dec{s}_{b}")(x)
-            if self.deep_supervision and s < 3:
-                ds.append(getattr(self, f"ds{3 - s}")(x))
-        logits = self.out(x).float()
-        if self.deep_supervision:
-            return [logits] + [d.float() for d in reversed(ds)]
-        return logits
+            with span(spans["up"][s]):
+                x = getattr(self, f"up{s}")(x) + skips[3 - s]
+            with span(spans["dec"][s]):
+                for b in range(bc[5 + s]):
+                    x = getattr(self, f"dec{s}_{b}")(x)
+                if self.deep_supervision and s < 3:
+                    ds.append(getattr(self, f"ds{3 - s}")(x))
+        with span("mednext.head"):
+            logits = self.out(x).float()
+            if self.deep_supervision:
+                return [logits] + [d.float() for d in reversed(ds)]
+            return logits
 
 
 @registry.register("mednext", num_classes=8, size="S", kernel=3, deep_supervision=False)

@@ -4,7 +4,11 @@ Counterpart of `micformer_tpu/train/profiling.py` on PyTorch:
   - trace(logdir): a `torch.profiler` context over the CPU and, when CUDA is
     initialised, the card's kernels; writes a Chrome trace to
     `<logdir>/trace.json` and yields the profiler (`key_averages()` sums
-    time by kernel name);
+    time by kernel name). The trace holds the port's spans
+    (`micformer_tpu_torch.tracing.span`: `serve.infer`, `sw.*`, the
+    model's blocks, `train.*`, the kernel wrappers `k1.*`, `k2.*`, `k3.*`
+    by route) as annotations on the kernels' clock; PERF.md's table of
+    spans lists each with the per-layer metric that reads it;
   - Throughput: steps and items a second, the card synchronised before the
     clock is read;
   - time_fn: (mean, p50) seconds of fn(*args), on the card between CUDA

@@ -68,6 +68,7 @@ from micformer_tpu_torch.parallel.mesh import is_primary, make_mesh, zero1
 from micformer_tpu_torch.train.checkpoint import CheckpointManager
 from micformer_tpu_torch.train.logging import MetricsWriter, save_metrics
 from micformer_tpu_torch.train.meters import AverageMeter, ProgressMeter, Timer
+from micformer_tpu_torch.tracing import span
 from micformer_tpu_torch.train.schedules import cosine_annealing, poly_lr
 from micformer_tpu_torch.utils import count_parameters
 
@@ -283,32 +284,52 @@ class Trainer:
     def train_step(self, images, labels) -> dict:
         """One step on a loader batch (this rank's rows of the global batch
         under a mesh). The gradients stay in the parameters' .grad until the
-        next step."""
-        cfg = self.cfg
-        before = dict(LAUNCHES)
-        t0 = time.perf_counter()
-        self.net.train()
-        images, labels = self.prep_batch(images, labels)
-        images, labels = self._augment(images, labels)
-        self.optimizer.zero_grad(set_to_none=True)
-        with self._autocast(), self._global(images.shape[0]):
-            loss = self.loss(self.net(images, generator=self.generator), labels)
-        loss.backward()
-        value = loss.item()
-        skipped = cfg.nan_guard and not math.isfinite(value)
-        if not skipped:
-            if cfg.grad_clip_norm:
-                clip_by_global_norm(self.params, cfg.grad_clip_norm)
-            self.optimizer.step()
-            self.scheduler.step()
-            self.step += 1
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        rec = {"step": self.step, "loss": value, "skipped": skipped,
-               "seconds": time.perf_counter() - t0,
-               "launches": {k: LAUNCHES[k] - before[k] for k in LAUNCHES}}
-        self.history.append(rec)
-        return rec
+        next step. The step is the span `train.step`, its phases the spans
+        `train.prep` (train mode, the batch to the device), `train.augment`,
+        `train.zero_grad`, `train.forward`, `train.loss`, `train.backward`,
+        `train.readback`, `train.optimizer`, `train.schedule`, `train.wait`
+        and `train.release` (the step's autograd graph and batch freed)
+        (`tracing.span`)."""
+        with span("train.step"):
+            cfg = self.cfg
+            before = dict(LAUNCHES)
+            t0 = time.perf_counter()
+            with span("train.prep"):
+                self.net.train()
+                images, labels = self.prep_batch(images, labels)
+            with span("train.augment"):
+                images, labels = self._augment(images, labels)
+            with span("train.zero_grad"):
+                self.optimizer.zero_grad(set_to_none=True)
+            with self._autocast(), self._global(images.shape[0]):
+                with span("train.forward"):
+                    out = self.net(images, generator=self.generator)
+                with span("train.loss"):
+                    loss = self.loss(out, labels)
+            del out
+            with span("train.backward"):
+                loss.backward()
+            with span("train.readback"):
+                value = loss.item()
+            skipped = cfg.nan_guard and not math.isfinite(value)
+            if not skipped:
+                with span("train.optimizer"):
+                    if cfg.grad_clip_norm:
+                        clip_by_global_norm(self.params, cfg.grad_clip_norm)
+                    self.optimizer.step()
+                with span("train.schedule"):
+                    self.scheduler.step()
+                self.step += 1
+            if self.device.type == "cuda":
+                with span("train.wait"):
+                    torch.cuda.synchronize(self.device)
+            rec = {"step": self.step, "loss": value, "skipped": skipped,
+                   "seconds": time.perf_counter() - t0,
+                   "launches": {k: LAUNCHES[k] - before[k] for k in LAUNCHES}}
+            with span("train.release"):
+                del loss, images, labels
+            self.history.append(rec)
+            return rec
 
     def lr_now(self) -> float:
         return self.cfg.lr * float(self.schedule(self.step))
