@@ -273,6 +273,11 @@ KERNELS = {
         "source": "micformer_tpu_torch/csrc/dw_conv3_wgrad.cu",
         "replaces": "micformer_tpu/ops/pallas/dw_stencil.py:97",
     },
+    "dw_transpose2_wgrad": {
+        "route": "cuda",
+        "source": "micformer_tpu_torch/csrc/dw_transpose2_wgrad.cu",
+        "replaces": "none: cuDNN's wgrad of the transposed depthwise up conv",
+    },
 }
 # (N, T, h, d): stages 0-3 of a 128³ forward at sw_batch 4, then two ragged cases
 ATTN_SHAPES = [(16384, 8, 3, 16), (2048, 8, 6, 16), (256, 8, 12, 16),
@@ -315,6 +320,13 @@ DW_STAGE_LAUNCHES = [4, 4, 4, 4, 2]
 # then one rounding to bf16 (bf16)
 DW_WGRAD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-3),
                 torch.bfloat16: dict(rtol=1e-2, atol=2e-2)}
+# ([B, C, L, L, L], k): the inputs of MedNeXt-S's four transposed depthwise
+# up convs in a b2 128³ training step, one launch of their wgrad kernel each
+DWT2_TRAIN_SHAPES = [((2, 512, 8, 8, 8), 3), ((2, 256, 16, 16, 16), 3),
+                     ((2, 128, 32, 32, 32), 3), ((2, 64, 64, 64, 64), 3)]
+# the kernel and the plain version both multiply in f32 (bf16 products are
+# exact) and sum in another order: 1e-4 of the largest dw or db
+DWT2_WGRAD_REL_TOL = 1e-4
 # (N, T, h, d): MicFormer's attention at the four stages of a b1 128³
 # training step (window 2³, head dim 16)
 TRAIN_SHAPES = [(4096, 8, 3, 16), (512, 8, 6, 16), (64, 8, 12, 16), (8, 8, 24, 16)]
@@ -341,10 +353,11 @@ PATHS = {
 }
 # the training paths: launches per MicFormer training step (forward, backward)
 # with fused attention off and on, and per MedNeXt-S step (18 K3 forwards,
-# 18 K3 launches for dx and 18 wgrad launches)
+# 18 K3 launches for dx, 18 wgrad launches and 4 of the up convs' wgrad)
 TRAIN_STEP = {False: expect(window_attention=96, window_attention_backward=96),
               True: expect(fused_window_attention=96, fused_window_attention_backward=96),
-              "mednext": expect(dw_conv3=36, dw_conv3_wgrad=18), "generic_unet": expect(),
+              "mednext": expect(dw_conv3=36, dw_conv3_wgrad=18, dw_transpose2_wgrad=4),
+              "generic_unet": expect(),
               # the zoo: SwinUnet3D's 14 gated convs a forward, K3 again for
               # their dx and the wgrad kernel for dw and db
               "nnformer": expect(), "unet3d": expect(),
@@ -376,21 +389,27 @@ def path_routes(routes):
 # kernels) on the mma route
 PATH_ROUTES = ["tma", "volume"]
 ATTN_PATH_ROUTES = ["mma"]
+# MedNeXt's up convs' wgrad at roi 128 (L_W 8-64, multiples of 4): 16-byte loads
+DWT2_PATH_ROUTES = ["vector"]
 
 
 def all_routes():
-    """The routes a run used, per K3-family and attention (K1, K2) kernel."""
+    """The routes a run used, per K3-family, up-conv wgrad and attention
+    (K1, K2) kernel."""
     from micformer_tpu_torch.kernels.dw_conv3 import ROUTES
+    from micformer_tpu_torch.kernels.dw_transpose2 import ROUTES as DWT2_ROUTES
     from micformer_tpu_torch.kernels.window_attention import ROUTES as ATTN_ROUTES
 
-    return path_routes({**ROUTES, **ATTN_ROUTES})
+    return path_routes({**ROUTES, "dw_transpose2_wgrad": DWT2_ROUTES, **ATTN_ROUTES})
 
 
 def reset_all_routes():
     from micformer_tpu_torch.kernels.dw_conv3 import reset_routes
+    from micformer_tpu_torch.kernels.dw_transpose2 import reset_routes as reset_dwt2
     from micformer_tpu_torch.kernels.window_attention import reset_routes as reset_attn
 
     reset_routes()
+    reset_dwt2()
     reset_attn()
 
 
@@ -923,6 +942,62 @@ def phase_dw_backward_kernel():
     return dx_rows, wgrad_rows
 
 
+def phase_dwt2_wgrad_kernel():
+    """The up convs' weight-gradient kernel at MedNeXt-S's b2 training
+    shapes, f32 and bf16: held against its plain version, run twice for the
+    same bits, and timed against the plain version and cuDNN's wgrad (dw and
+    db of `aten.convolution_backward` on the zero-padded gradient, as
+    autograd ran it before the kernel)."""
+    from micformer_tpu_torch.kernels.dw_transpose2 import (
+        _dwt2_route, dw_transpose2_wgrad, dw_transpose2_wgrad_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for ((B, C, D, H, W), k), dt in itertools.product(
+            DWT2_TRAIN_SHAPES, (torch.float32, torch.bfloat16)):
+        x = torch.randn((B, C, D, H, W), generator=gen, device="cuda").to(dt)
+        g = torch.randn((B, C, 2 * D, 2 * H, 2 * W), generator=gen, device="cuda").to(dt)
+        got = dw_transpose2_wgrad(x, g, k)
+        again = dw_transpose2_wgrad(x, g, k)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, b, r in zip(("dw", "db"), got, again, dw_transpose2_wgrad_reference(x, g, k)):
+            errs[name] = (a - r).abs().max().item()
+            tol = DWT2_WGRAD_REL_TOL * r.abs().max().item()
+            if not (errs[name] <= tol) or not torch.equal(a, b):
+                raise AssertionError(f"dw_transpose2_wgrad {name} {[B, C, D, H, W]} k {k} {dt}: "
+                                     f"max err {errs[name]} (limit {tol}), same bits twice "
+                                     f"{torch.equal(a, b)}")
+        del got, again
+        # the transposed conv's output before the cut is 2L + 1 per axis
+        gp = g.new_zeros((B, C, 2 * D + 1, 2 * H + 1, 2 * W + 1))
+        gp[:, :, :2 * D, :2 * H, :2 * W] = g
+        wf = torch.randn((C, 1, k, k, k), generator=gen, device="cuda").to(dt)
+        ms, by, b_ms, o_ms = dw_bound((x.numel() + g.numel()) * x.element_size()
+                                      + C * (k ** 3 + 1) * 4, 2 * k ** 3 * x.numel() + g.numel())
+        with torch.no_grad():
+            row = {"shape": [B, C, D, H, W], "k": k, "dtype": str(dt).replace("torch.", ""),
+                   "route": _dwt2_route(x.shape, x.data_ptr(), g.data_ptr()),
+                   "max_abs_err": max(errs.values()), "dw_err": errs["dw"],
+                   "db_err": errs["db"],
+                   "ms": time_ms(lambda: dw_transpose2_wgrad(x, g, k)),
+                   "plain_ms": time_ms(lambda: dw_transpose2_wgrad_reference(x, g, k), reps=5),
+                   "library_ms": time_ms(lambda: torch.ops.aten.convolution_backward(
+                       gp, x, wf, [C], [2] * 3, [k // 2 - 1] * 3, [1] * 3, True, [0] * 3, C,
+                       [False, True, True]), reps=5),
+                   "bound_ms": ms, "bound_by": by, "bytes_bound_ms": b_ms,
+                   "ops_bound_ms": o_ms}
+        rows.append(row)
+        log(f"kernel dw_transpose2_wgrad {row['shape']} k {k} {row['dtype']} {row['route']}: "
+            f"err {row['max_abs_err']:.3g}, kernel {1e3 * row['ms']:.2f} us, plain "
+            f"{1e3 * row['plain_ms']:.2f} us, cudnn wgrad {1e3 * row['library_ms']:.2f} us, "
+            f"bound {1e3 * row['bound_ms']:.2f} us ({row['bound_by']}; bytes "
+            f"{1e3 * row['bytes_bound_ms']:.2f} us, ops {1e3 * row['ops_bound_ms']:.2f} us)")
+        del x, g, gp, wf
+    return rows
+
+
 def phase_slice(name, model_cpu):
     from micformer_tpu_torch.kernels import LAUNCHES, reset_launches
 
@@ -1130,6 +1205,7 @@ def train_run(name, argv, key, batch, want_steps):
     k1_routes = ATTN_PATH_ROUTES if key is False else []
     k2_routes = ATTN_PATH_ROUTES if key is True else []
     want_routes = {"dw_conv3": dw_routes, "dw_conv3_wgrad": dw_routes,
+                   "dw_transpose2_wgrad": DWT2_PATH_ROUTES if key == "mednext" else [],
                    "window_attention": k1_routes, "window_attention_backward": k1_routes,
                    "fused_window_attention": k2_routes,
                    "fused_window_attention_backward": k2_routes}
@@ -1212,7 +1288,7 @@ def phase_serve(name, model_cpu, work, want=None, want_routes=None, model_kwargs
     routes = all_routes()
     if want_routes is None:
         want_routes = {"dw_conv3": PATH_ROUTES if name == "mednext" else [],
-                       "dw_conv3_wgrad": [],
+                       "dw_conv3_wgrad": [], "dw_transpose2_wgrad": [],
                        "window_attention": ATTN_PATH_ROUTES if name == "micformer" else [],
                        "window_attention_backward": [], "fused_window_attention": [],
                        "fused_window_attention_backward": []}
@@ -1643,7 +1719,7 @@ PARALLEL_SIZE = 128          # (a), (c): MicFormer's steps; (b), (e): the traini
 SHARDED_SIZE, SHARDED_ROI = 160, 128    # (d): phase 7's grid
 RANK_THREADS = 3             # torch threads a rank: two ranks and this process share 8 cores
 PARALLEL_TRAIN = {"micformer": expect(window_attention=96, window_attention_backward=96),
-                  "mednext": expect(dw_conv3=36, dw_conv3_wgrad=18),
+                  "mednext": expect(dw_conv3=36, dw_conv3_wgrad=18, dw_transpose2_wgrad=4),
                   "generic_unet": expect()}
 
 
@@ -2008,6 +2084,8 @@ def _check_rank_train(name, outs, key, steps, zero1):
     k1 = ATTN_PATH_ROUTES if key == "micformer" else []
     want_routes = {k: dw if k.startswith("dw_conv3") else k1 if k.startswith("window") else []
                    for k in KERNELS}
+    if key == "mednext":
+        want_routes["dw_transpose2_wgrad"] = DWT2_PATH_ROUTES
     for r, o in enumerate(outs):
         log(f"parallel (b) {name}, rank {r}: {len(o['losses'])} steps to step {o['step']}, "
             f"losses {o['losses']}, first step {o['first_step_s']:.3f} s, warm "
@@ -3109,6 +3187,8 @@ def main():
                  SWIN_DW_STAGE_LAUNCHES)
     dw_pass_sums("dw_conv3_wgrad (SwinUnet3D b2 step)", wgrad, SWIN_DW_TRAIN_SHAPES,
                  SWIN_DW_STAGE_LAUNCHES)
+    dwt2 = phase_dwt2_wgrad_kernel()
+    dw_pass_sums("dw_transpose2_wgrad (b2 step)", dwt2, DWT2_TRAIN_SHAPES, [1, 1, 1, 1])
     from micformer_tpu_torch import registry
 
     work = os.path.join(ROOT, ".chip_smoke_work")
@@ -3149,9 +3229,11 @@ def main():
     # layout of the path's self attention (sliced from the fused qkv
     # projection): K1 at serving's [16384, 8, 3, 16], its backward and K2 at
     # training's [4096, 8, 3, 16]; K3 on MedNeXt-S's [4, 32, 128³], the wgrad
-    # kernel on its training [2, 32, 128³]. Launches are each path's: K1 and
-    # K3 from the serve phase's three volumes, the backwards and K2 from the
-    # train phase's runs that use them, wgrad from the three MedNeXt runs;
+    # kernel on its training [2, 32, 128³], the up convs' wgrad kernel on the
+    # training up conv [2, 64, 64³] whose output is stage 0's. Launches are
+    # each path's: K1 and K3 from the serve phase's three volumes, the
+    # backwards and K2 from the train phase's runs that use them, both wgrad
+    # kernels from the three MedNeXt runs;
     # K1, K2 and K3 add the export phase's (its artifacts' requests), K1
     # and K3 the reference phase's, K3 the features phase's (the cuda
     # request of the two-platform artifact)
@@ -3172,7 +3254,10 @@ def main():
              ("dw_conv3", stage0(dw, DW_SHAPES[0][0]), dw, serve["mednext"]["launches"]),
              ("dw_conv3_wgrad", stage0(wgrad, DW_TRAIN_SHAPES[0][0]), wgrad,
               {"dw_conv3_wgrad": sum(r["launches"]["dw_conv3_wgrad"] for n, r in train.items()
-                                     if n.startswith("mednext"))})]
+                                     if n.startswith("mednext"))}),
+             ("dw_transpose2_wgrad", stage0(dwt2, DWT2_TRAIN_SHAPES[-1][0]), dwt2,
+              {"dw_transpose2_wgrad": sum(r["launches"]["dw_transpose2_wgrad"]
+                                          for n, r in train.items() if n.startswith("mednext"))})]
     kernels = [{"name": name, **KERNELS[name],
                 "launches": (launches[name] + exported["launches"][name]
                              + reference["launches"][name] + features["launches"][name]),

@@ -16,7 +16,7 @@ from __future__ import annotations
 LAUNCHES: dict[str, int] = {"window_attention": 0, "window_attention_backward": 0,
                              "fused_window_attention": 0,
                              "fused_window_attention_backward": 0, "dw_conv3": 0,
-                             "dw_conv3_wgrad": 0}
+                             "dw_conv3_wgrad": 0, "dw_transpose2_wgrad": 0}
 ATTENTION_PATHS: dict[str, int] = {"k1": 0, "k2": 0, "matmul": 0}
 # calls of each forward wrapper on any device, at trace time too: each call
 # is one call of its op, so an exported graph holds one op node for each

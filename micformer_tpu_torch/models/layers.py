@@ -37,6 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from micformer_tpu_torch.kernels.dw_conv3 import dw_conv3
+from micformer_tpu_torch.kernels.dw_transpose2 import dw_transpose2, transpose2_conv
 from micformer_tpu_torch.ops.attention import (
     merge_heads, multi_head_attention, split_heads,
 )
@@ -575,7 +576,9 @@ class DepthwiseConv3D(nn.Conv3d):
     (lo, hi), zero-pads first (a symmetric k//2 pad at stride 1 is the SAME
     conv and runs the kernel too); `transpose2` is the stride-2 transpose
     conv of MedNeXt's default up block, exactly 2L per axis:
-    conv(zero_dilate(x), pad (k//2 + 1, k//2))."""
+    conv(zero_dilate(x), pad (k//2 + 1, k//2)), cuDNN's transposed conv;
+    when a gradient is asked for, through `dw_transpose2`, whose dw and db
+    come from the hand-written weight-gradient kernel."""
 
     def __init__(self, channels: int, kernel: int = 3, stride: int = 1,
                  pad=None, transpose2: bool = False):
@@ -591,12 +594,11 @@ class DepthwiseConv3D(nn.Conv3d):
         w = self.weight.to(x.dtype)
         b = self.bias.to(x.dtype)
         if self.transpose2:
-            # conv_transpose3d at padding p-1 with the flipped kernel yields
-            # dilate-and-pad (p+1, p) plus one extra plane per axis; keep 2L
-            D, H, W = x.shape[2:]
-            y = F.conv_transpose3d(x, w.flip((2, 3, 4)), b, stride=2, padding=p - 1,
-                                   groups=self.groups)
-            return y[:, :, :2 * D, :2 * H, :2 * W]
+            if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad
+                                            or self.bias.requires_grad):
+                # the same conv, with dw and db from the hand-written kernel
+                return dw_transpose2(x, w, b)
+            return transpose2_conv(x, w, b)
         if s == 1 and self.pad in (None, ((p, p),) * 3):
             # a tensor with size-1 axes can come out of F.pad channels-last;
             # on the serving path x is already contiguous and this is free
