@@ -51,21 +51,55 @@ def program_model(config: dict, dtype, device, state: dict) -> torch.nn.Module:
     `program_kwargs`, else its `kwargs`), built on the meta device and given
     `state` on `device`: no weights are drawn on the host. The state loads
     strictly, so the program's parameters have the reference's shapes; they
-    must number the config's `parameters`."""
+    must number the config's `parameters`. Its buffers, which `to_empty`
+    leaves unset, are given the values its constructor computes
+    (`derived_buffers`); a model without buffers builds nothing more."""
     from micformer_tpu_torch import registry
 
     kwargs = config.get("program_kwargs", config["kwargs"])
     with torch.device("meta"):
         model = registry.build(config["model"], dtype=dtype, device="meta", **kwargs)
-    if any(True for _ in model.buffers()):
-        raise RuntimeError(f"{config['model']}: a buffer would be left unset by to_empty")
     count = sum(p.numel() for p in model.parameters())
     if count != config["parameters"]:
         raise RuntimeError(f"{config['name']}: the program's model has {count} parameters, "
                            f"the configuration states {config['parameters']}")
+    buffers = derived_buffers(config["model"], kwargs, model)
     model.to_empty(device=device)
+    for name, value in buffers.items():
+        model.get_buffer(name).copy_(value)
     model.load_state_dict(state)
     return model
+
+
+def derived_buffers(name: str, kwargs: dict, model: torch.nn.Module) -> dict:
+    """{buffer name: value} of `model`, the registered `name` built on the
+    meta device with `kwargs`: what its constructor computes for each
+    buffer. Only non-persistent buffers are taken, such as the rel-pos
+    models' `rel_pos_index`: the reference cannot supply a buffer that a
+    state_dict holds. The values come from a twin that the registered
+    factory builds under the meta device, without `registry.build`'s move
+    to it: its parameters hold nothing, while a buffer made from host data
+    (`torch.from_numpy`) keeps its values on the CPU. A buffer that the
+    twin holds on meta has no value to give, and is refused."""
+    from micformer_tpu_torch import registry
+
+    names = [n for n, _ in model.named_buffers()]
+    if not names:
+        return {}
+    held = model.state_dict()
+    persistent = [n for n in names if n in held]
+    if persistent:
+        raise RuntimeError(f"{name}: the buffers {persistent} are in the state_dict, and the "
+                           "reference has no value for them")
+    factory, registered = registry._lookup(name)
+    with torch.device("meta"):
+        twin = factory(**{**registered, **kwargs})
+    values = dict(twin.named_buffers())
+    unset = [n for n in names if n not in values or values[n].is_meta]
+    if unset:
+        raise RuntimeError(f"{name}: the buffers {unset} are computed on the meta device, "
+                           "so to_empty would leave them unset")
+    return {n: values[n] for n in names}
 
 
 # The one value of each of these mix keys that the runner and the judge

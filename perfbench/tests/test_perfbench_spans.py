@@ -209,7 +209,9 @@ GOLDEN = {
                          "kernels_per_volume.infer": 2.0, "k3_roofline.infer": 6821.261984477613},
     "mednext_s.train_b2": {"device_idle.train": 50.0, "mfu.train": 0.5055611729019212,
                            "kernels_per_step.train": 2.0, "k3_roofline.train": 3410.7259032835827,
-                           "k3_wgrad_roofline.train": 3410.926271044776},
+                           "k3_wgrad_roofline.train": 3410.926271044776,
+                           # no up-conv wgrad kernel in the synthetic trace
+                           "dwt2_wgrad_roofline.train": None},
 }
 CONTEXTS = {"micformer.pair_sw8": dict(calls=2, volumes=4, steps=0, forwards=[16], batch=0),
             "mednext_s.serve1": dict(calls=2, volumes=2, steps=0, forwards=[4, 4], batch=0),
