@@ -45,6 +45,7 @@ from micformer_tpu_torch.ops.windows import (
     adjust_window_shift, cyclic_shift, relative_position_index, shifted_window_region_ids,
     window_partition, window_reverse,
 )
+from micformer_tpu_torch.tracing import span
 
 LN_EPS = 1e-5
 
@@ -274,7 +275,13 @@ class WindowAttention3D(nn.Module):
     by relative_position_index(window_size) (`rel_pos_bias`; at inference
     read from its cache after `materialize_rpe_cache`). fused_attention selects
     `multi_head_attention(..., fused=True)`, the fused kernel K2 on the
-    card."""
+    card.
+
+    core_span: None, or the name of one span around the attention's core, the
+    bias lookup and the `multi_head_attention` call, which the owning model
+    sets (SwinUNETR's `swinunetr.swin<i>.b<b>.attn.core`)."""
+
+    core_span = None
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  cross: bool = False, fused_attention: bool = False,
@@ -311,11 +318,17 @@ class WindowAttention3D(nn.Module):
             idx = (torch.arange(x.shape[0] // nW)[:, None] * nW
                    + torch.as_tensor(window_perm)).reshape(-1).to(x.device)
             q, k = q[idx], k[idx]
-        bias = None if self.rel_pos_bias_table is None else rel_pos_bias(self, window)
-        out = multi_head_attention(split_heads(q, h), split_heads(k, h), split_heads(v, h),
-                                   bias=bias, mask=mask,
-                                   fused=self.fused_attention)
+        q, k, v = split_heads(q, h), split_heads(k, h), split_heads(v, h)
+        if self.core_span is None:
+            out = self._core(q, k, v, mask, window)
+        else:
+            with span(self.core_span):
+                out = self._core(q, k, v, mask, window)
         return self.proj(merge_heads(out))
+
+    def _core(self, q, k, v, mask, window):
+        bias = None if self.rel_pos_bias_table is None else rel_pos_bias(self, window)
+        return multi_head_attention(q, k, v, bias=bias, mask=mask, fused=self.fused_attention)
 
 
 class SwinBlock3D(nn.Module):
@@ -332,7 +345,14 @@ class SwinBlock3D(nn.Module):
     input_size: the [D, H, W] the block is built for. With a rel-pos bias
     the table is that of the window clamped to it, as the JAX block's table
     is that of the window clamped to the input it was initialised on; None
-    builds it for the configured window."""
+    builds it for the configured window.
+
+    spans: None, or the names (block, attention branch, MLP branch) of three
+    spans, the branches nested in the block's, which the owning model sets
+    (SwinUNETR's `swinunetr.swin<i>.b<b>`, `.attn`, `.mlp`). The attention
+    branch runs from norm1 through its residual add."""
+
+    spans = None
 
     def __init__(self, dim: int, num_heads: int, window_size=(4, 4, 4),
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
@@ -356,6 +376,16 @@ class SwinBlock3D(nn.Module):
         self.drop_path = DropPath(drop_path)
 
     def forward(self, x, generator=None):
+        if self.spans is None:
+            return self._mlp(self._attn(x, generator), generator)
+        block, attn, mlp = self.spans
+        with span(block):
+            with span(attn):
+                x = self._attn(x, generator)
+            with span(mlp):
+                return self._mlp(x, generator)
+
+    def _attn(self, x, generator):
         B, D, H, W, C = x.shape
         if self.swinunet_scramble:
             ws, ss = self.window_size, self.shift_size
@@ -373,7 +403,9 @@ class SwinBlock3D(nn.Module):
         mask = None if ids is None else torch.from_numpy(ids).to(x.device)
         a = self.attn(window_partition(xn, ws), mask=mask, window_perm=perm, window=ws)
         a = cyclic_shift(window_reverse(a, ws, B, Dp, Hp, Wp), ss, reverse=True)
-        x = x + self.drop_path(a[:, :D, :H, :W], generator)
+        return x + self.drop_path(a[:, :D, :H, :W], generator)
+
+    def _mlp(self, x, generator):
         return x + self.drop_path(self.mlp(self.norm2(x)), generator)
 
 

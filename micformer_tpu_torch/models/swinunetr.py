@@ -17,6 +17,15 @@ the flax tree, so `convert.from_flax` maps its weights.
 each stage's clamped window and so the shapes of the bias tables, as in
 nnFormer; None builds them for the configured window (no stage clamps at
 128³: grids 64-32-16-8).
+
+Tracing: the forward's parts are spans of a profiler's trace
+(`tracing.span`): `swinunetr.embed`; each Swin block as
+`swinunetr.swin<i>.b<b>` with its branches `.attn` (norm1 through the
+residual add) and `.mlp` nested in it, and in `.attn` the attention's core,
+`swinunetr.swin<i>.b<b>.attn.core` (the bias lookup and
+`multi_head_attention`); `swinunetr.merge<i>`; the conv blocks
+`swinunetr.encoder<k>` and `swinunetr.decoder<k>` under their module names;
+`swinunetr.out`.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from micformer_tpu_torch import registry
 from micformer_tpu_torch.models.layers import (
     InstanceNorm, PatchEmbed3D, PatchMergingLinear, SwinBlock3D,
 )
+from micformer_tpu_torch.tracing import span
 
 
 class ResConvBlock(nn.Module):
@@ -86,10 +96,14 @@ class SwinUNETR(nn.Module):
         for i in range(4):
             dim = Fs * 2 ** i
             for b in range(depths[i]):
-                self.add_module(f"swin{i}_b{b}", SwinBlock3D(
+                block = SwinBlock3D(
                     dim, num_heads[i], window_size,
                     shift_size=tuple(w // 2 for w in window_size) if b % 2 else (0, 0, 0),
-                    rel_pos_bias=True, input_size=None if res is None else res[i]))
+                    rel_pos_bias=True, input_size=None if res is None else res[i])
+                name = f"swinunetr.swin{i}.b{b}"
+                block.spans = (name, f"{name}.attn", f"{name}.mlp")
+                block.attn.core_span = f"{name}.attn.core"
+                self.add_module(f"swin{i}_b{b}", block)
             self.add_module(f"merge{i}", PatchMergingLinear(dim))
         self.encoder1 = ResConvBlock(in_channels, Fs)
         self.encoder2 = ResConvBlock(Fs, Fs)
@@ -102,27 +116,35 @@ class SwinUNETR(nn.Module):
         self.decoder2 = UpBlock(2 * Fs, Fs, Fs)
         self.decoder1 = UpBlock(Fs, Fs, Fs)
         self.out = nn.Conv3d(Fs, num_classes, 1)
+        self._spans = {n: f"swinunetr.{n}" for n, _ in self.named_children()}
+
+    def _run(self, name, *args):
+        """Module `name` on args, as its span."""
+        with span(self._spans[name]):
+            return getattr(self, name)(*args)
 
     def forward(self, x, generator=None):
         x = x.to(self.out.weight.dtype)               # the weights' dtype
-        h = self.patch_embed(x.permute(0, 2, 3, 4, 1))
+        with span("swinunetr.embed"):
+            h = self.patch_embed(x.permute(0, 2, 3, 4, 1))
         hiddens = [h]
         for i in range(4):
             for b in range(self.depths[i]):
                 h = getattr(self, f"swin{i}_b{b}")(h, generator)
-            h = getattr(self, f"merge{i}")(h)
+            h = self._run(f"merge{i}", h)
             hiddens.append(h)
         cf = [t.permute(0, 4, 1, 2, 3) for t in hiddens]
-        enc0 = self.encoder1(x)
-        enc1 = self.encoder2(cf[0])
-        enc2 = self.encoder3(cf[1])
-        enc3 = self.encoder4(cf[2])
-        d = self.decoder5(self.encoder10(cf[4]), cf[3])
-        d = self.decoder4(d, enc3)
-        d = self.decoder3(d, enc2)
-        d = self.decoder2(d, enc1)
-        d = self.decoder1(d, enc0)
-        return self.out(d).float()
+        enc0 = self._run("encoder1", x)
+        enc1 = self._run("encoder2", cf[0])
+        enc2 = self._run("encoder3", cf[1])
+        enc3 = self._run("encoder4", cf[2])
+        d = self._run("decoder5", self._run("encoder10", cf[4]), cf[3])
+        d = self._run("decoder4", d, enc3)
+        d = self._run("decoder3", d, enc2)
+        d = self._run("decoder2", d, enc1)
+        d = self._run("decoder1", d, enc0)
+        with span("swinunetr.out"):
+            return self.out(d).float()
 
 
 @registry.register("swinunetr", num_classes=8, feature_size=12, input_size=None)
