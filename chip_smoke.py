@@ -43,7 +43,13 @@ Phases; any error in any of them fails the run (non-zero exit, no result line):
                over one MedNeXt-S pass (18 launches at the stage shapes); the
                same K3, dx and wgrad rows at SwinUnet3D's gated-conv shapes
                (96-768 channels: [4, C, 32³-4³] serving, b2 training), summed
-               over its 14 launches a pass.
+               over its 14 launches a pass; the biased window attention kernel
+               at SwinUNETR's four stage shapes in bf16 (q, k, v sliced from
+               one fused qkv, a bias, with and without the shifted blocks'
+               region ids), against its plain version, the same bits twice,
+               LAUNCHES counting each launch, timed beside its bound, the plain
+               chain it replaced and SDPA with bias and mask as one attn_mask,
+               then summed over one served call (16 launches).
   4. slice   - per model, full width with seeded random weights, f32 with TF32
                off, on one 1x2x64³ input: the card (kernels) against the CPU
                (plain versions). MicFormer: embed 48, depths 2-2-6-2, heads
@@ -58,7 +64,11 @@ Phases; any error in any of them fails the run (non-zero exit, no result line):
                roi 128, overlap 0.5, gaussian, sw_batch 4. Launch counts, K3's
                staging routes (tma and volume only), K1's routes (mma only)
                and peak memory are reset just before the three and read just
-               after.
+               after. Then SwinUNETR at the benchmark's widths (feature 48,
+               heads 3-6-12-24, window 7³, input 128) the same way: each
+               request 16 launches of the biased window attention kernel (8
+               on each of its routes none and ids), 16 "bwa" and 0 "matmul"
+               attention paths, nothing else launched by hand.
   6. train   - cli/train.main at full width in bf16 on a synthetic MM-WHS root
                (six cases preprocessed to 128³: four train, one validation).
                MicFormer: two epochs with validation, then --resume for a
@@ -134,7 +144,9 @@ Phases; any error in any of them fails the run (non-zero exit, no result line):
                nnFormer, SwinUnet3D, VT-UNet, SwinUNETR, TransBTS (built for 128³)
                and TransUNet in bf16 through the serve loop as phase 5 (one cold
                request, three [2, 160³] at roi 128), their launches, routes and
-               attention paths (the plain chain only); (d) cli/train on phase 6's
+               attention paths (nnFormer's, SwinUnet3D's and VT-UNet's windows
+               through the biased window attention kernel, the rest on the
+               plain chain); (d) cli/train on phase 6's
                root in bf16: nnFormer from configs/nnformer_mmwhs.yaml for two
                epochs with validation, SwinUnet3D (28 K3 and 14 wgrad launches a
                step, tma and volume routes) and UNet3D for one epoch each at batch
@@ -278,6 +290,11 @@ KERNELS = {
         "source": "micformer_tpu_torch/csrc/dw_transpose2_wgrad.cu",
         "replaces": "none: cuDNN's wgrad of the transposed depthwise up conv",
     },
+    "biased_window_attention": {
+        "route": "cuda",
+        "source": "micformer_tpu_torch/csrc/biased_window_attention.cu",
+        "replaces": "none: the JAX package's XLA chain of biased, masked window attention",
+    },
 }
 # (N, T, h, d): stages 0-3 of a 128³ forward at sw_batch 4, then two ragged cases
 ATTN_SHAPES = [(16384, 8, 3, 16), (2048, 8, 6, 16), (256, 8, 12, 16),
@@ -327,6 +344,24 @@ DWT2_TRAIN_SHAPES = [((2, 512, 8, 8, 8), 3), ((2, 256, 16, 16, 16), 3),
 # the kernel and the plain version both multiply in f32 (bf16 products are
 # exact) and sum in another order: 1e-4 of the largest dw or db
 DWT2_WGRAD_REL_TOL = 1e-4
+# (N, T, h, d): SwinUNETR's window attention at the four stages of a forward
+# of 4 tiles of 128³ (feature 48, heads 3-6-12-24, window 7³), each run by one
+# plain and one shifted block, and the padded grid whose shifted windows give
+# the stage's region ids; a served call is two forwards (16 launches)
+BWA_SHAPES = [(4000, 343, 3, 16), (500, 343, 6, 16), (108, 343, 12, 16), (32, 343, 24, 16)]
+BWA_GRIDS = [70, 35, 21, 14]
+# SwinUNETR at the benchmark's widths (perfbench/configs/swinunetr.json, the
+# paper's model): a served request's 16 window attentions (two forwards of 8,
+# 4 of them with the shifted blocks' region ids) all take the kernel
+SWINUNETR_SERVED = {"feature_size": 48, "depths": [2, 2, 2, 2], "num_heads": [3, 6, 12, 24],
+                    "window_size": [7, 7, 7], "in_channels": 2, "input_size": 128}
+SWINUNETR_REQUEST_BWA = 16
+# exponentials a second on one H100 SXM: the special-function units' rate
+# (FlashAttention-3, arXiv:2407.08608 §3), as perfbench's swin_attn_roofline
+EXP_PER_S = 3.9e12
+# the kernel and the plain version each round P once to bf16 and the output
+# once: at most 2^-9 of max |v| each, so 2^-7 of max |v| between them
+BWA_REL_TOL = 2.0 ** -7
 # (N, T, h, d): MicFormer's attention at the four stages of a b1 128³
 # training step (window 2³, head dim 16)
 TRAIN_SHAPES = [(4096, 8, 3, 16), (512, 8, 6, 16), (64, 8, 12, 16), (8, 8, 24, 16)]
@@ -391,19 +426,28 @@ PATH_ROUTES = ["tma", "volume"]
 ATTN_PATH_ROUTES = ["mma"]
 # MedNeXt's up convs' wgrad at roi 128 (L_W 8-64, multiples of 4): 16-byte loads
 DWT2_PATH_ROUTES = ["vector"]
+# the biased window attention's routes (the mask's kind) where a model has
+# shifted blocks beside plain ones: region ids and no mask
+BWA_PATH_ROUTES = ["ids", "none"]
+# the zoo's runs whose bf16 validation forwards (no gradient) put their
+# windows through the biased window attention kernel
+BWA_VALIDATED = ("nnformer", "swinunet3d", "vtunet")
 
 
 def all_routes():
     """The routes a run used, per K3-family, up-conv wgrad and attention
-    (K1, K2) kernel."""
+    (K1, K2, biased window attention) kernel."""
+    from micformer_tpu_torch.kernels.biased_window_attention import ROUTES as BWA_ROUTES
     from micformer_tpu_torch.kernels.dw_conv3 import ROUTES
     from micformer_tpu_torch.kernels.dw_transpose2 import ROUTES as DWT2_ROUTES
     from micformer_tpu_torch.kernels.window_attention import ROUTES as ATTN_ROUTES
 
-    return path_routes({**ROUTES, "dw_transpose2_wgrad": DWT2_ROUTES, **ATTN_ROUTES})
+    return path_routes({**ROUTES, "dw_transpose2_wgrad": DWT2_ROUTES, **ATTN_ROUTES,
+                        "biased_window_attention": BWA_ROUTES})
 
 
 def reset_all_routes():
+    from micformer_tpu_torch.kernels.biased_window_attention import reset_routes as reset_bwa
     from micformer_tpu_torch.kernels.dw_conv3 import reset_routes
     from micformer_tpu_torch.kernels.dw_transpose2 import reset_routes as reset_dwt2
     from micformer_tpu_torch.kernels.window_attention import reset_routes as reset_attn
@@ -411,6 +455,7 @@ def reset_all_routes():
     reset_routes()
     reset_dwt2()
     reset_attn()
+    reset_bwa()
 
 
 def time_ms(fn, reps=20):
@@ -998,6 +1043,87 @@ def phase_dwt2_wgrad_kernel():
     return rows
 
 
+def phase_bwa_kernel():
+    """The biased window attention kernel at SwinUNETR's four stage shapes in
+    bf16, q, k, v sliced from one fused qkv projection, with a bias and with
+    and without the shifted blocks' region ids: held against its plain
+    version (BWA_REL_TOL of max |v|), run twice for the same bits, counted by
+    LAUNCHES, and timed after an L2 flush beside its bound (the longest of
+    the exponentials at EXP_PER_S, the bytes of q, k, v, out and the bias,
+    the products at the bf16 peak), the plain chain it replaced
+    (`attention_chain`) and SDPA with bias and mask as one additive attn_mask
+    (the yardstick: the port never calls it). Then the rows summed over one
+    served call: two forwards of a plain and a shifted block at each stage.
+    Returns the rows."""
+    from micformer_tpu_torch.kernels import LAUNCHES
+    from micformer_tpu_torch.kernels.biased_window_attention import (
+        ROUTES, biased_window_attention, biased_window_attention_reference, reset_routes,
+    )
+    from micformer_tpu_torch.ops.attention import MASK_VALUE, attention_chain
+    from micformer_tpu_torch.ops.windows import shifted_window_region_ids
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = []
+    for (N, T, h, d), grid in zip(BWA_SHAPES, BWA_GRIDS):
+        qkv = torch.randn((N, T, 3 * h * d), generator=gen, device="cuda").bfloat16()
+        q, k, v = (t.view(N, T, h, d) for t in qkv.chunk(3, dim=-1))
+        bias = torch.randn((h, T, T), generator=gen, device="cuda").bfloat16()
+        ids = torch.from_numpy(shifted_window_region_ids((grid,) * 3, (7,) * 3, (3,) * 3)).cuda()
+        for mask in (None, ids):
+            kind = "none" if mask is None else "ids"
+            reset_routes()
+            before = LAUNCHES["biased_window_attention"]
+            got = biased_window_attention(q, k, v, bias, mask)
+            again = biased_window_attention(q, k, v, bias, mask)
+            torch.cuda.synchronize()
+            if LAUNCHES["biased_window_attention"] != before + 2 or ROUTES[kind] != 2:
+                raise AssertionError(f"biased_window_attention {[N, T, h, d]} {kind}: launches "
+                                     f"{LAUNCHES['biased_window_attention'] - before}, routes "
+                                     f"{ROUTES} (want 2 on {kind})")
+            ref = biased_window_attention_reference(q, k, v, bias, mask)
+            err = (got.float() - ref.float()).abs().max().item()
+            tol = BWA_REL_TOL * v.abs().max().item()
+            del ref
+            if not (err <= tol) or not torch.equal(got, again):
+                raise AssertionError(f"biased_window_attention {[N, T, h, d]} {kind}: max err "
+                                     f"{err} (limit {tol}), same bits twice "
+                                     f"{torch.equal(got, again)}")
+            del got, again
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            add = bias[None]
+            if mask is not None:
+                pair = torch.where(ids[:, :, None] == ids[:, None, :], 0.0, MASK_VALUE).bfloat16()
+                add = (bias[None] + pair[:, None]).repeat(N // len(ids), 1, 1, 1)
+            nbytes = 4 * q.numel() * 2 + bias.numel() * 2
+            least = {"exponentials": N * h * T * T / EXP_PER_S,
+                     "bytes": nbytes / HBM_BYTES_PER_S,
+                     "operations": 4 * N * h * T * T * d / PEAK_OPS_PER_S[torch.bfloat16]}
+            by = max(least, key=least.get)
+            row = {"shape": [N, T, h, d], "mask": kind, "dtype": "bfloat16",
+                   "max_abs_err": err, "route": kind,
+                   "ms": time_ms(lambda: biased_window_attention(q, k, v, bias, mask)),
+                   "plain_ms": time_ms(lambda: attention_chain(q, k, v, bias=bias, mask=mask),
+                                       reps=5),
+                   "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, attn_mask=add), reps=5),
+                   "bound_ms": 1e3 * least[by], "bound_by": by}
+            del add
+            rows.append(row)
+            log(f"kernel biased_window_attention {row['shape']} {kind} bf16: err {err:.3g} "
+                f"(limit {tol:.3g}), kernel {1e3 * row['ms']:.2f} us, attention_chain "
+                f"{1e3 * row['plain_ms']:.2f} us, sdpa {1e3 * row['library_ms']:.2f} us, "
+                f"bound {1e3 * row['bound_ms']:.2f} us ({by}), "
+                f"{100 * row['bound_ms'] / row['ms']:.2f} % of it")
+        del q, k, v, qkv, bias
+        torch.cuda.empty_cache()
+    call = {key: 2 * sum(r[key] for r in rows) for key in ("ms", "plain_ms", "library_ms",
+                                                            "bound_ms")}
+    log(f"biased_window_attention (one served call, 16 launches): kernel {call['ms']:.3f} ms, "
+        f"attention_chain {call['plain_ms']:.3f} ms, sdpa {call['library_ms']:.3f} ms, bound "
+        f"{call['bound_ms']:.3f} ms ({100 * call['bound_ms'] / call['ms']:.2f} % of it)")
+    return rows
+
+
 def phase_slice(name, model_cpu):
     from micformer_tpu_torch.kernels import LAUNCHES, reset_launches
 
@@ -1208,7 +1334,8 @@ def train_run(name, argv, key, batch, want_steps):
                    "dw_transpose2_wgrad": DWT2_PATH_ROUTES if key == "mednext" else [],
                    "window_attention": k1_routes, "window_attention_backward": k1_routes,
                    "fused_window_attention": k2_routes,
-                   "fused_window_attention_backward": k2_routes}
+                   "fused_window_attention_backward": k2_routes,
+                   "biased_window_attention": BWA_PATH_ROUTES if key in BWA_VALIDATED else []}
     peak = torch.cuda.max_memory_allocated()
     hist = trainer.history
     losses = [r["loss"] for r in hist]
@@ -1243,24 +1370,27 @@ def train_run(name, argv, key, batch, want_steps):
     return res, trainer
 
 
-def phase_serve(name, model_cpu, work, want=None, want_routes=None, model_kwargs=None):
+def phase_serve(name, model_cpu, work, want=None, want_routes=None, model_kwargs=None,
+                tag=None):
     """One cold request, then three [2, 160³] requests in bf16 through the
     serve loop; each request's launches must be `want` (PATHS[name]'s
     request by default) and the three's routes `want_routes` (by default:
     MedNeXt's K3 on tma and volume, MicFormer's K1 on mma). model_kwargs:
-    serve's --model-kwargs (the input a model was built for)."""
+    serve's --model-kwargs (the input a model was built for, or its widths);
+    tag: the name of the run's files in `work` (default: name)."""
     from micformer_tpu_torch.cli import serve
     from micformer_tpu_torch.data.nifti import read_nifti
     from micformer_tpu_torch.kernels import ATTENTION_PATHS, LAUNCHES, reset_launches
 
-    weights = os.path.join(work, f"{name}_bf16.pt")
+    tag = tag or name
+    weights = os.path.join(work, f"{tag}_bf16.pt")
     torch.save({k: v.bfloat16() for k, v in model_cpu.state_dict().items()}, weights)
     rng = np.random.default_rng(1)
 
     def serve_dir(sub, names):
         """Write one [2, 160³] request per name into a watch directory and
         serve them all; returns (latencies, out directory)."""
-        watch = os.path.join(work, f"{name}_{sub}")
+        watch = os.path.join(work, f"{tag}_{sub}")
         out = f"{watch}_out"
         os.makedirs(watch)
         for vol in names:
@@ -1291,14 +1421,14 @@ def phase_serve(name, model_cpu, work, want=None, want_routes=None, model_kwargs
                        "dw_conv3_wgrad": [], "dw_transpose2_wgrad": [],
                        "window_attention": ATTN_PATH_ROUTES if name == "micformer" else [],
                        "window_attention_backward": [], "fused_window_attention": [],
-                       "fused_window_attention_backward": []}
+                       "fused_window_attention_backward": [], "biased_window_attention": []}
     peak = torch.cuda.max_memory_allocated()
 
     per_request = []
     for vol in names:
         seg = read_nifti(os.path.join(out, f"{vol}_seg.nii.gz"))
         if seg.shape != (160, 160, 160) or seg.max() >= 8:
-            raise AssertionError(f"serve {name}: bad segmentation for {vol}: {seg.shape}")
+            raise AssertionError(f"serve {tag}: bad segmentation for {vol}: {seg.shape}")
         with open(os.path.join(out, f"{vol}.done")) as f:
             per_request.append(json.load(f)["launches"])
     want = PATHS[name]["request"] if want is None else want
@@ -1307,16 +1437,41 @@ def phase_serve(name, model_cpu, work, want=None, want_routes=None, model_kwargs
            "vol_per_s": len(lat) / sum(lat), "wall_s": wall,
            "max_memory_allocated": peak, "launches": launches,
            "launches_per_request": per_request, "routes": routes, "attention_paths": paths}
-    log(f"serve: {name} {len(lat)} warm volumes 2x160³ bf16 roi 128 sw_batch 4: p50 "
+    log(f"serve: {tag} {len(lat)} warm volumes 2x160³ bf16 roi 128 sw_batch 4: p50 "
         f"{res['p50_s']:.4f} s, {res['vol_per_s']:.3f} vol/s, latencies {lat}, "
         f"cold first request {cold:.4f} s, peak {peak / 2 ** 30:.2f} GiB, "
         f"launches {launches}, per request {per_request}, routes {routes}, attention "
         f"paths {paths}")
     if (len(lat) != 3 or per_request != [want] * 3
             or launches != {k: 3 * n for k, n in want.items()} or routes != want_routes):
-        raise AssertionError(f"serve {name}: {len(lat)} requests, launches {launches}, "
+        raise AssertionError(f"serve {tag}: {len(lat)} requests, launches {launches}, "
                              f"per request {per_request} (want 3 requests of {want}), "
                              f"routes {routes} (want {want_routes})")
+    return res
+
+
+def phase_swinunetr_serve(work):
+    """SwinUNETR at the benchmark's widths (SWINUNETR_SERVED) through the
+    serve loop as phase 5 serves its models: each request's window
+    attentions all on the biased window attention kernel, half on each of
+    the routes none and ids, none on the plain chain."""
+    from micformer_tpu_torch import registry
+    from micformer_tpu_torch.kernels.biased_window_attention import ROUTES
+
+    model_cpu = registry.build("swinunetr", device="cpu", num_classes=8,
+                               generator=torch.Generator().manual_seed(0), **SWINUNETR_SERVED)
+    log(f"model: swinunetr at the benchmark's widths "
+        f"{sum(p.numel() for p in model_cpu.parameters())} parameters")
+    n = SWINUNETR_REQUEST_BWA
+    res = phase_serve("swinunetr", model_cpu, work, want=expect(biased_window_attention=n),
+                      want_routes={k: BWA_PATH_ROUTES if k == "biased_window_attention" else []
+                                   for k in KERNELS},
+                      model_kwargs=SWINUNETR_SERVED, tag="swinunetr_bench")
+    want_paths = {k: 3 * c for k, c in _paths(bwa=n).items()}
+    want_routes = {"none": 3 * n // 2, "ids": 3 * n // 2, "additive": 0}
+    if res["attention_paths"] != want_paths or dict(ROUTES) != want_routes:
+        raise AssertionError(f"serve swinunetr_bench: attention paths {res['attention_paths']} "
+                             f"(want {want_paths}), routes {dict(ROUTES)} (want {want_routes})")
     return res
 
 
@@ -2297,8 +2452,8 @@ ZOO_MODELS = {"unet3d": ("unet3d", {}),
 ZOO_REL_BAR = 1e-4
 
 
-def _paths(matmul=0, k1=0):
-    return {"k1": k1, "k2": 0, "matmul": matmul}
+def _paths(matmul=0, k1=0, bwa=0):
+    return {"k1": k1, "k2": 0, "bwa": bwa, "matmul": matmul}
 
 
 # launches and attention paths of one forward at 1x2x64³: SwinUnet3D's 14
@@ -2318,11 +2473,18 @@ ZOO_SLICE = {"unet3d": (expect(), _paths()), "nnformer": (expect(), _paths(14)),
              "halfunet": (expect(), _paths()), "unet_patchify": (expect(), _paths())}
 # (c) one request: two forwards at sw_batch 4, roi 128 (no window clamps to
 # 16 tokens or fewer); bf16 rows of 8 bytes at 4³ take K3's cp_async route.
+# nnFormer's 14 windows a forward (64 and 512 tokens, heads of 16 and 32),
+# SwinUnet3D's 18 (64 tokens, head 32) and VT-UNet's 19 (343 and 64 tokens,
+# head 32) take the biased window attention kernel; SwinUNETR's heads of 6
+# and 8, TransBTS's 4096 tokens and TransUNet's heads of 8 the plain chain.
 # (launches, attention paths, routes, build kwargs of the served model)
-ZOO_REQUEST = {"nnformer": (expect(), _paths(28), {}, {}),
-               "swinunet3d": (expect(dw_conv3=28), _paths(36),
-                              {"dw_conv3": ["cp_async", "tma", "volume"]}, {}),
-               "vtunet": (expect(), _paths(38), {}, {}),
+ZOO_REQUEST = {"nnformer": (expect(biased_window_attention=28), _paths(bwa=28),
+                            {"biased_window_attention": BWA_PATH_ROUTES}, {}),
+               "swinunet3d": (expect(dw_conv3=28, biased_window_attention=36), _paths(bwa=36),
+                              {"dw_conv3": ["cp_async", "tma", "volume"],
+                               "biased_window_attention": BWA_PATH_ROUTES}, {}),
+               "vtunet": (expect(biased_window_attention=38), _paths(bwa=38),
+                          {"biased_window_attention": BWA_PATH_ROUTES}, {}),
                "swinunetr": (expect(), _paths(20), {}, {}),
                "transbts": (expect(), _paths(8), {}, {"input_size": 128}),
                "transunet": (expect(), _paths(10), {}, {})}
@@ -3189,6 +3351,7 @@ def main():
                  SWIN_DW_STAGE_LAUNCHES)
     dwt2 = phase_dwt2_wgrad_kernel()
     dw_pass_sums("dw_transpose2_wgrad (b2 step)", dwt2, DWT2_TRAIN_SHAPES, [1, 1, 1, 1])
+    bwa = phase_bwa_kernel()
     from micformer_tpu_torch import registry
 
     work = os.path.join(ROOT, ".chip_smoke_work")
@@ -3209,11 +3372,12 @@ def main():
                 phase_mednext_train_slice()
             serve[name] = phase_serve(name, model_cpu, work)
             del model_cpu
+        swin = phase_swinunetr_serve(work)
         train = phase_train(work)
         predicted = phase_predict(work)
         phase_train_rest(work)
         phase_parallel(work, predicted["direct"])
-        phase_zoo(work)
+        zoo = phase_zoo(work)
         phase_tensor(work)
         platforms_export = start_platforms_export(work)
         exported = phase_export(work, serve)
@@ -3230,10 +3394,14 @@ def main():
     # projection): K1 at serving's [16384, 8, 3, 16], its backward and K2 at
     # training's [4096, 8, 3, 16]; K3 on MedNeXt-S's [4, 32, 128³], the wgrad
     # kernel on its training [2, 32, 128³], the up convs' wgrad kernel on the
-    # training up conv [2, 64, 64³] whose output is stage 0's. Launches are
+    # training up conv [2, 64, 64³] whose output is stage 0's, the biased
+    # window attention kernel on SwinUNETR's [4000, 343, 3, 16] with the
+    # shifted blocks' region ids. Launches are
     # each path's: K1 and K3 from the serve phase's three volumes, the
     # backwards and K2 from the train phase's runs that use them, both wgrad
-    # kernels from the three MedNeXt runs;
+    # kernels from the three MedNeXt runs; the biased window attention
+    # kernel from the served SwinUNETR at the benchmark's widths and the
+    # zoo's served requests;
     # K1, K2 and K3 add the export phase's (its artifacts' requests), K1
     # and K3 the reference phase's, K3 the features phase's (the cuda
     # request of the two-platform artifact)
@@ -3257,7 +3425,11 @@ def main():
                                      if n.startswith("mednext"))}),
              ("dw_transpose2_wgrad", stage0(dwt2, DWT2_TRAIN_SHAPES[-1][0]), dwt2,
               {"dw_transpose2_wgrad": sum(r["launches"]["dw_transpose2_wgrad"]
-                                          for n, r in train.items() if n.startswith("mednext"))})]
+                                          for n, r in train.items() if n.startswith("mednext"))}),
+             ("biased_window_attention", next(r for r in bwa if r["shape"] == list(BWA_SHAPES[0])
+                                              and r["mask"] == "ids"), bwa,
+              {"biased_window_attention": sum(r["launches"]["biased_window_attention"]
+                                              for r in (swin, *zoo["serve"].values()))})]
     kernels = [{"name": name, **KERNELS[name],
                 "launches": (launches[name] + exported["launches"][name]
                              + reference["launches"][name] + features["launches"][name]),

@@ -5,9 +5,10 @@ Counterpart of `micformer_tpu/convert/aot_export.py`. The sliding-window
 pipeline (tiling, the model, gaussian blending, optional mirror TTA, argmax)
 is exported with `torch.export` as one graph, the trained weights and the
 blending map held in it as constants; the tile loop is unrolled for the
-artifact's one input shape. The kernels K1, K2 and K3 are custom ops of the
-`micformer_tpu_torch` namespace (`kernels/`), so each launch is a node of the
-graph whose real implementation launches the kernel when the artifact runs.
+artifact's one input shape. The kernels K1, K2, K3 and the biased window
+attention are custom ops of the `micformer_tpu_torch` namespace (`kernels/`),
+so each launch is a node of the graph whose real implementation launches the
+kernel when the artifact runs.
 Serving an artifact needs torch, `micformer_tpu_torch.kernels` (imported by
 `load_artifact`, which registers the ops) and the artifact directory, not the
 model zoo, the checkpoint tree or the config system.
@@ -42,7 +43,7 @@ VERSION = 2
 # the devices an artifact can hold a program for
 PLATFORMS = ("cuda", "cpu")
 # the forward wrappers whose calls become op nodes (`kernels.CALLS`)
-OPS = ("window_attention", "fused_window_attention", "dw_conv3")
+OPS = ("window_attention", "fused_window_attention", "biased_window_attention", "dw_conv3")
 
 
 class InferenceModule(nn.Module):
@@ -150,8 +151,8 @@ def export_artifact(out_dir: str, model, *, target_shape, roi, num_classes=8,
     one program for each of `platforms` (default: the model's device).
     Weights are held in each program as constants. Raises before anything
     is written if a platform cannot run here, and if a forward wrapper was
-    traced into anything but its op node (K1, K2 or K3 inlined as plain
-    math). Returns the meta dict."""
+    traced into anything but its op node (K1, K2, K3 or the biased window
+    attention inlined as plain math). Returns the meta dict."""
     here = next(model.parameters()).device.type
     platforms = check_platforms([here] if platforms is None else platforms)
     programs = {}

@@ -7,10 +7,13 @@ split_heads / merge_heads are pure reshapes.
 `multi_head_attention` dispatches by regime, as the JAX function does: the
 unbiased, unmasked tiny-window regime (Tq, Tk <= 16), which the JAX package
 runs through its window-attention kernels, goes to K1 (or K2 under
-fused=True); anything with a bias, a mask or more tokens, which the JAX
-package computes with XLA, goes to `attention_chain`, the plain chain of
-its einsums, on either device. `kernels.ATTENTION_PATHS` counts each call's
-path.
+fused=True). Anything with a bias, a mask or more tokens, which the JAX
+package computes with XLA, goes on the card, in bf16 or f16 and with no
+gradient asked for, to the biased window attention kernel for windows of up
+to 512 tokens and heads of 16 or 32 (`should_use_bwa`), and otherwise to
+`attention_chain`, the plain chain of the JAX package's einsums: on the CPU,
+in f32, in training, and for longer or wider attention.
+`kernels.ATTENTION_PATHS` counts each call's path.
 """
 
 from __future__ import annotations
@@ -18,12 +21,14 @@ from __future__ import annotations
 import torch
 
 from micformer_tpu_torch.kernels import ATTENTION_PATHS
+from micformer_tpu_torch.kernels.biased_window_attention import (  # noqa: F401
+    MASK_VALUE, biased_window_attention, should_use_bwa,
+)
 from micformer_tpu_torch.kernels.fused_window_attention import (
     fused_window_attention, should_use_fused,
 )
 from micformer_tpu_torch.kernels.window_attention import MAX_T, window_attention
 
-MASK_VALUE = -100.0     # the Swin convention for token pairs of two regions
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -39,8 +44,10 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Unbiased and unmasked with Tq, Tk <= 16: K1 (`window_attention`: the
     kernel for CUDA tensors, its plain version for CPU tensors), or with
     fused=True, where `should_use_fused` holds (equal token counts on a CUDA
-    tensor), K2 on [N, h, T, d] views of the operands. Everything else:
-    `attention_chain`."""
+    tensor), K2 on [N, h, T, d] views of the operands. Then, where
+    `should_use_bwa` holds (a CUDA tensor in bf16 or f16, no gradient asked
+    for, Tq == Tk <= 512, d 16 or 32), the biased window attention kernel.
+    Everything else: `attention_chain`."""
     Tq, d = q.shape[1], q.shape[3]
     if bias is None and mask is None and Tq <= MAX_T and k.shape[1] <= MAX_T:
         if fused and Tq == k.shape[1] and should_use_fused(Tq, d, bias, mask, q.device):
@@ -50,6 +57,9 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             return out.transpose(1, 2)
         ATTENTION_PATHS["k1"] += 1
         return window_attention(q, k, v, scale)
+    if should_use_bwa(q, k, v, bias, mask):
+        ATTENTION_PATHS["bwa"] += 1
+        return biased_window_attention(q, k, v, bias=bias, mask=mask, scale=scale)
     ATTENTION_PATHS["matmul"] += 1
     return attention_chain(q, k, v, bias=bias, mask=mask, scale=scale)
 

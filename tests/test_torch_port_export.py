@@ -83,6 +83,7 @@ def test_k2_op_output_follows_q_layout():
 
 
 def test_wrappers_count_calls_and_no_launches_on_cpu():
+    from micformer_tpu_torch.kernels.biased_window_attention import biased_window_attention
     from micformer_tpu_torch.kernels.dw_conv3 import dw_conv3
     from micformer_tpu_torch.kernels.fused_window_attention import fused_window_attention
 
@@ -90,6 +91,7 @@ def test_wrappers_count_calls_and_no_launches_on_cpu():
     q = _randn(4, 8, 3, 16)
     k1.window_attention(q, q, q)
     fused_window_attention(q, q, q)
+    biased_window_attention(q, q, q, bias=_randn(3, 8, 8))
     dw_conv3(_randn(1, 2, 4, 4, 4), _randn(2, 1, 3, 3, 3))
     assert {n: CALLS[n] - before[n] for n in CALLS} == dict.fromkeys(CALLS, 1)
     assert LAUNCHES == launches
@@ -147,8 +149,10 @@ def test_artifact_round_trip_in_a_fresh_process(tmp_path, name, argmax):
     first, nodes, bad = res.stdout.strip().splitlines()[-3:]
     assert first == f"{meta['output']} ['cpu'] 0"
     nodes = json.loads(nodes)
-    want = {"micformer": {"window_attention": 16, "fused_window_attention": 0, "dw_conv3": 0},
-            "mednext": {"window_attention": 0, "fused_window_attention": 0, "dw_conv3": 18}}
+    want = {"micformer": {"window_attention": 16, "fused_window_attention": 0,
+                          "biased_window_attention": 0, "dw_conv3": 0},
+            "mednext": {"window_attention": 0, "fused_window_attention": 0,
+                        "biased_window_attention": 0, "dw_conv3": 18}}
     # one op node a traced wrapper call, and no softmax chain of a plain version
     assert nodes == dict(want[name], softmax=0) and want[name] == traced
     assert bad == "[]"
@@ -235,7 +239,7 @@ def test_cli_export_then_serve_exported_answers_as_serve_run_dir(tmp_path):
     assert len(lat) == 1
     assert report["model"] == "micformer" and report["load_s"] > 0
     assert report["op_nodes"] == {"window_attention": 16, "fused_window_attention": 0,
-                                  "dw_conv3": 0, "softmax": 0}
+                                  "biased_window_attention": 0, "dw_conv3": 0, "softmax": 0}
     a = read_nifti(str(tmp_path / "a" / "vol_seg.nii.gz"))
     assert a.shape == (32, 32, 32) and a.dtype == np.uint8
     np.testing.assert_array_equal(a, read_nifti(str(tmp_path / "b" / "vol_seg.nii.gz")))

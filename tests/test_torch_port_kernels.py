@@ -800,7 +800,7 @@ def test_attention_paths_on_card(cuda_device):
     q, k, v = arr(64, 8, 4, 32), arr(64, 8, 4, 32), arr(64, 8, 4, 32)
     multi_head_attention(*(t.to(cuda_device) for t in (q, k, v)))
     multi_head_attention(*(t.to(cuda_device) for t in (q, k, v)), fused=True)
-    assert ATTENTION_PATHS == {"k1": 1, "k2": 1, "matmul": 0}
+    assert ATTENTION_PATHS == {"k1": 1, "k2": 1, "bwa": 0, "matmul": 0}
     assert LAUNCHES["window_attention"] == 1 and LAUNCHES["fused_window_attention"] == 1
     q, k, v, bias = arr(16, 64, 3, 32), arr(16, 64, 3, 32), arr(16, 64, 3, 32), arr(3, 64, 64)
     ids = torch.from_numpy(rng.integers(0, 4, (4, 64)).astype(np.int32))
@@ -808,7 +808,7 @@ def test_attention_paths_on_card(cuda_device):
     got = multi_head_attention(*(t.to(cuda_device) for t in (q, k, v)),
                                bias=bias.to(cuda_device), mask=ids.to(cuda_device))
     multi_head_attention(*(t.to(cuda_device) for t in (q, k, v)))
-    assert ATTENTION_PATHS == {"k1": 1, "k2": 1, "matmul": 3}
+    assert ATTENTION_PATHS == {"k1": 1, "k2": 1, "bwa": 0, "matmul": 3}
     assert LAUNCHES["window_attention"] == 1 and LAUNCHES["fused_window_attention"] == 1
     settings = (f"allow_tf32 {torch.backends.cuda.matmul.allow_tf32}, float32 matmul "
                 f"precision {torch.get_float32_matmul_precision()}, blas "
@@ -845,7 +845,7 @@ def test_swinunet3d_forward_launches_k3_on_card(cuda_device):
                 launches, paths = dict(LAUNCHES), dict(ATTENTION_PATHS)
                 want = cpu(x)
             assert launches["dw_conv3"] == n and launches["window_attention"] == 10
-            assert paths == {"k1": 10, "k2": 0, "matmul": 8}
+            assert paths == {"k1": 10, "k2": 0, "bwa": 0, "matmul": 8}
             torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * want.abs().max().item())
     finally:
         torch.backends.cudnn.allow_tf32 = True

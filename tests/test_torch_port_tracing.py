@@ -185,6 +185,7 @@ def test_an_export_under_a_running_profiler_has_the_same_op_nodes(tmp_path):
                                           roi=(ROI,) * 3, sw_batch_size=2)
     program = torch.export.load(str(tmp_path / meta["programs"]["cpu"]))
     assert aot_export.op_nodes(program) == {"window_attention": 16, "fused_window_attention": 0,
-                                            "dw_conv3": 0, "softmax": 0}
+                                            "biased_window_attention": 0, "dw_conv3": 0,
+                                            "softmax": 0}
     targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
     assert targets and not [t for t in targets if "profiler" in t or "record_function" in t]

@@ -195,7 +195,7 @@ def test_attention_paths_are_counted():
         tattn.multi_head_attention(*map(torch.from_numpy, (q, k, v)), fused=fused)
     q, k, v, _ = _attn_inputs(4, 64, 64, 2, 8)
     tattn.multi_head_attention(*map(torch.from_numpy, (q, k, v)))
-    assert ATTENTION_PATHS == {"k1": 2, "k2": 0, "matmul": 4}
+    assert ATTENTION_PATHS == {"k1": 2, "k2": 0, "bwa": 0, "matmul": 4}
 
 
 @pytest.mark.parametrize("window", [(4, 4, 4), (2, 4, 4), (1, 2, 2), (8, 8, 8)])
